@@ -1,0 +1,42 @@
+"""airpose_tpu_torch — the PyTorch/CUDA port of airpose_tpu for one NVIDIA H100.
+
+The JAX package ``airpose_tpu`` beside it is the reference: module and file
+names here mirror it, public functions keep its layouts (images
+(B, 2, H, W, 3) NHWC, ``bb`` (B, 2, 3), ``intr`` (B, 2, 3, 3), pose
+(B, 2, 135), betas (B, 2, 10)), and the tests hold each function of this
+package against its JAX counterpart. This package imports neither JAX nor
+anything of ``airpose_tpu``.
+
+Layer map of the ported slice (the bf16 two-view perception chain):
+  perception.py  the chain of the root bench.py: trunk → IEF → 6D → SMPL-X → projection
+  entry.py, bench.py, profile_chain.py   entry point, throughput, device-time split
+  models/       ResNet-50 trunk, IEF regressor, AirPoseTwoView
+  ops/           fused layer1 stage (CUDA kernel) + the nvcc/ctypes builder
+  bodymodel/     SMPL-X forward, LBS, skinning (CUDA kernel)
+  geometry/      rotation conversions
+  train/         cam_frame_and_project, flax → torch weight carry
+  csrc/          the CUDA C++ kernel sources (sm_90a)
+
+Entry points run on the GPU: ``device=None`` means ``"cuda"``, and without a
+CUDA device they raise. Pass ``device="cpu"`` to run the plain PyTorch
+versions of the kernels on the CPU, as the tests do.
+"""
+
+import torch
+
+# The JAX side runs geometry and SMPL-X at precision="highest"; TF32 would
+# keep only ~3 decimal digits in f32 matmuls and convolutions.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → the CUDA device. Raises when CUDA is asked for (explicitly
+    or by default) and none is available: nothing falls back to the CPU
+    unless the caller asks for ``"cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "airpose_tpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU")
+    return dev

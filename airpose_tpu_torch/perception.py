@@ -1,0 +1,99 @@
+"""The two-view perception chain, the port's main path (the chain of the root
+bench.py:109-125 with its bf16 trunk):
+
+  1. both 224² crops of each frame through one ResNet-50 trunk (views folded
+     into the batch): stem → fused layer1 kernel → layers 2-4;
+  2. three IEF steps, each view reading the other's pose and shape;
+  3. 6D → rotmat;
+  4. SMPL-X forward (10,475 vertices, 127 joints), skinned by the kernel;
+  5. cam_frame_and_project.
+
+Each stage runs inside a ``torch.profiler.record_function`` span (trunk,
+ief, smplx, project; the trunk's stem, layer1 and tail inside it), which
+``profile_chain.py`` reads; without an active profiler a span costs a few
+microseconds of host time.
+"""
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from . import constants as C
+from . import resolve_device
+from .bodymodel.smplx import SMPLXParams, smplx_forward, synthetic_smplx_params
+from .geometry.rotations import rot6d_to_rotmat
+from .models.airpose import AirPoseTwoView
+from .ops.fused_bottleneck import (StageOps, resnet50_fused_infer,
+                                   stage1_params_from_state_dict)
+from .train.losses import cam_frame_and_project
+
+
+@torch.no_grad()
+def perceive(
+    model: AirPoseTwoView,
+    smplx_params: SMPLXParams,
+    images: torch.Tensor,         # (B, 2, H, W, 3)
+    bb: torch.Tensor,             # (B, 2, 3)
+    init_position: torch.Tensor,  # (B, 2, 3)
+    intr: torch.Tensor,           # (B, 2, 3, 3)
+    stage_ops: Optional[StageOps] = None,
+    use_kernels: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (vertices (B, 2, V, 3), j2d (B, 2, 127, 2)). Runs where its inputs
+    are: kernels on the card, their plain versions on the CPU, or the plain
+    versions on the card with ``use_kernels=False``. ``stage_ops`` are the
+    folded layer1 operands (``build_perception`` makes them once)."""
+    B = images.shape[0]
+    with record_function("trunk"):
+        xf = resnet50_fused_infer(
+            model.trunk, images.reshape((B * 2,) + images.shape[2:]), stage_ops,
+            use_kernels=use_kernels).reshape(B, 2, -1)
+    with record_function("ief"):
+        out = model.from_features(xf, bb, init_position)
+        trans = out.pose[..., :3] / C.TRANS_SCALE
+        rotmat = rot6d_to_rotmat(out.pose[..., 3:].reshape(B, 2, 22, 6))
+    with record_function("smplx"):
+        eye = torch.eye(3, dtype=rotmat.dtype, device=rotmat.device).expand(B * 2, 1, 3, 3)
+        body = smplx_forward(
+            smplx_params,
+            out.betas.reshape(B * 2, 10),
+            body_pose=rotmat[:, :, 1:].reshape(B * 2, 21, 3, 3),
+            global_orient=eye,
+            use_kernels=use_kernels,
+        )
+    with record_function("project"):
+        joints = body.joints.reshape(B, 2, -1, 3)
+        verts = body.vertices.reshape(B, 2, -1, 3)
+        _, j2d = cam_frame_and_project(rotmat[:, :, 0], trans, joints, intr,
+                                       C.FOCAL_LENGTH)
+    return verts, j2d
+
+
+def build_perception(device=None, seed: int = 0, num_vertices: int = 10475
+                     ) -> Tuple[AirPoseTwoView, SMPLXParams, StageOps]:
+    """The bf16 AirPoseTwoView (random weights from ``seed``) in eval mode,
+    the synthetic SMPL-X model and the folded layer1 operands, on ``device``
+    (``None`` → CUDA; raises without it)."""
+    dev = resolve_device(device)
+    model = AirPoseTwoView(dtype=torch.bfloat16, seed=seed).eval().to(dev)
+    smplx_params = synthetic_smplx_params(num_vertices=num_vertices).to(dev)
+    stage_ops = stage1_params_from_state_dict(model.trunk.state_dict())
+    return model, smplx_params, stage_ops
+
+
+def bench_inputs(batch: int, device=None, seed: int = 0, crop: int = C.CROP_SIZE):
+    """The root bench.py's inputs: normal(0, 1) crops from
+    ``np.random.default_rng(seed)``, zero boxes, every person 10 m out, the
+    synthetic camera. → (images, bb, init_position, intr) on ``device``."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(
+        rng.normal(size=(batch, 2, crop, crop, 3)).astype(np.float32)).to(dev)
+    bb = torch.zeros((batch, 2, 3), device=dev)
+    init_position = torch.full((batch, 2, 3), 10.0 * C.TRANS_SCALE, device=dev)
+    fx, fy = C.FOCAL_LENGTH
+    intr = torch.tensor([[fx, 0, C.CX], [0, fy, C.CY], [0, 0, 1.0]],
+                        device=dev).expand(batch, 2, 3, 3)
+    return images, bb, init_position, intr
