@@ -1,0 +1,154 @@
+"""int8 convolution with a fused epilogue: the CUDA kernel
+``csrc/int8_conv.cu`` and its plain PyTorch version.
+
+One kernel family serves both int8 trunks of the port. It is the port of
+airpose_tpu/ops/int8_bottleneck.py::int8_block (ops/int8_bottleneck.py
+runs a block as 3 or 4 launches) and it computes each conv of
+airpose_tpu/ops/int8_trunk.py::_qconv (ops/int8_trunk.py).
+
+Layouts: x (N, H, W, Cin) int8 NHWC; w (Cout, kh·kw·Cin) int8 with
+k = (kh·KW + kw)·Cin + cin; m, b (Cout,) f32. 1×1 and 3×3 kernels pad
+``ksize // 2`` on each side, also at stride 2. The epilogue, in f32:
+
+  v = f32(acc)·m + b
+  res int8 (with r):  v = v + f32(res)·r       identity shortcut of a block
+  res f32:            v = v + res              projection shortcut of a block
+  res bf16:           v = f32(bf16(v)) + f32(res)   conv3 of the _qconv trunk
+  relu (optional), then int8 clip(round(v), −127, 127) (half to even),
+  f32, or bf16.
+
+``int8_conv`` takes the plain version only for CPU tensors; on CUDA
+tensors it launches the kernel or raises.
+"""
+
+from typing import Optional
+
+import torch
+from torch.nn import functional as F
+
+from . import _build
+
+launches = 0  # kernel launches since the last reset (a plain integer)
+
+_RES_KIND = {None: 0, torch.int8: 1, torch.float32: 2, torch.bfloat16: 3}
+_OUT_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def out_size(n: int, ksize: int, stride: int) -> int:
+    """Output rows (or columns) of ``n`` input rows, padding ``ksize // 2``."""
+    return (n + 2 * (ksize // 2) - ksize) // stride + 1
+
+
+def epilogue(acc: torch.Tensor, m: torch.Tensor, b: torch.Tensor,
+             res: Optional[torch.Tensor] = None, r: Optional[torch.Tensor] = None,
+             relu: bool = False, out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """The kernel's epilogue on an int32 accumulator (..., Cout), in torch."""
+    v = acc.float() * m + b
+    if res is not None:
+        if res.dtype == torch.bfloat16:
+            v = v.to(torch.bfloat16).float() + res.float()
+        elif res.dtype == torch.int8:
+            v = v + res.float() * r
+        else:
+            v = v + res
+    if relu:
+        v = torch.relu(v)
+    if out_dtype == torch.int8:
+        return torch.round(v).clamp_(-127, 127).to(torch.int8)
+    return v.to(out_dtype)
+
+
+def int8_conv_reference(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor,
+                        b: torch.Tensor, ksize: int, stride: int = 1,
+                        res: Optional[torch.Tensor] = None,
+                        r: Optional[torch.Tensor] = None, relu: bool = False,
+                        out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """Plain version: an f64 convolution of the int8 values, exact because
+    |acc| ≤ 9·2048·127² < 2^53 (f32 would round sums past 2^24), cast to
+    int32, then ``epilogue``."""
+    cout, cin = w.shape[0], x.shape[-1]
+    wk = w.reshape(cout, ksize, ksize, cin).permute(0, 3, 1, 2).double()
+    acc = F.conv2d(x.permute(0, 3, 1, 2).double(), wk, stride=stride,
+                   padding=ksize // 2)
+    return epilogue(acc.permute(0, 2, 3, 1).to(torch.int32), m, b, res, r,
+                    relu, out_dtype)
+
+
+def int8_conv(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor, b: torch.Tensor,
+              ksize: int, stride: int = 1, res: Optional[torch.Tensor] = None,
+              r: Optional[torch.Tensor] = None, relu: bool = False,
+              out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """(N, H, W, Cin) int8 → (N, Ho, Wo, Cout) ``out_dtype``: the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    fn = int8_conv_reference if x.device.type == "cpu" else int8_conv_cuda
+    return fn(x, w, m, b, ksize, stride, res, r, relu, out_dtype)
+
+
+def _check(name, t, device, dtype, shape):
+    if t.device != device:
+        raise ValueError(f"int8_conv_cuda: {name} is on {t.device}, not {device}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"int8_conv_cuda: {name} is {t.dtype} {tuple(t.shape)}, "
+                         f"expected {dtype} {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"int8_conv_cuda: {name} is not contiguous")
+
+
+def int8_conv_cuda(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor,
+                   b: torch.Tensor, ksize: int, stride: int = 1,
+                   res: Optional[torch.Tensor] = None,
+                   r: Optional[torch.Tensor] = None, relu: bool = False,
+                   out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """Launch the kernel once; raises on anything it does not take."""
+    global launches
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_conv_cuda: x is on {x.device}, not CUDA")
+    if x.ndim != 4:
+        raise ValueError(f"int8_conv_cuda: x has shape {tuple(x.shape)}, "
+                         "expected (N, H, W, Cin)")
+    N, H, W, cin = x.shape
+    cout = w.shape[0]
+    if ksize not in (1, 3) or stride not in (1, 2):
+        raise ValueError(f"int8_conv_cuda: {ksize}×{ksize} stride {stride}; the "
+                         "kernel takes 1×1 and 3×3 at stride 1 or 2")
+    if cin % 32:
+        raise ValueError(f"int8_conv_cuda: Cin {cin} is not a multiple of 32")
+    if cout % 8:
+        raise ValueError(f"int8_conv_cuda: Cout {cout} is not a multiple of 8")
+    if out_dtype not in _OUT_KIND:
+        raise ValueError(f"int8_conv_cuda: output dtype {out_dtype}, expected "
+                         "int8, float32 or bfloat16")
+    ho, wo = out_size(H, ksize, stride), out_size(W, ksize, stride)
+    _check("x", x, x.device, torch.int8, (N, H, W, cin))
+    _check("w", w, x.device, torch.int8, (cout, ksize * ksize * cin))
+    _check("m", m, x.device, torch.float32, (cout,))
+    _check("b", b, x.device, torch.float32, (cout,))
+    if res is not None:
+        if res.dtype not in _RES_KIND:
+            raise ValueError(f"int8_conv_cuda: residual dtype {res.dtype}, expected "
+                             "int8, float32 or bfloat16")
+        _check("res", res, x.device, res.dtype, (N, ho, wo, cout))
+        if res.dtype == torch.int8:
+            if r is None:
+                raise ValueError("int8_conv_cuda: an int8 residual needs its scale r")
+            _check("r", r.reshape(1), x.device, torch.float32, (1,))
+    for name, t in (("x", x), ("w", w)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"int8_conv_cuda: {name} is not 16-byte aligned")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (m, b, res)):
+        raise RuntimeError("int8_conv_cuda has no backward")
+    out = torch.empty((N, ho, wo, cout), dtype=out_dtype, device=x.device)
+    if out.numel():
+        fn = _build.function("int8_conv", "airpose_int8_conv", 7, 10)
+        rs = r if res is not None and res.dtype == torch.int8 else None
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            _build.check(fn(x.data_ptr(), w.data_ptr(), m.data_ptr(), b.data_ptr(),
+                            None if res is None else res.data_ptr(),
+                            None if rs is None else rs.data_ptr(), out.data_ptr(),
+                            N, H, W, cin, cout, ksize, stride, int(relu),
+                            _RES_KIND[None if res is None else res.dtype],
+                            _OUT_KIND[out_dtype], stream), "int8_conv")
+        launches += 1
+    return out

@@ -1,20 +1,27 @@
 """The two-view perception chain, the port's main path (the chain of the root
-bench.py:109-125 with its bf16 trunk):
+bench.py:109-125):
 
   1. both 224² crops of each frame through one ResNet-50 trunk (views folded
-     into the batch): stem → fused layer1 kernel → layers 2-4;
+     into the batch), one of three:
+     - ``"int8"`` (the root bench's default): the int8 PTQ trunk of
+       ops/int8_trunk.py, every conv on the int8 conv kernel;
+     - ``"int8_block"``: the bf16 stem and layer1, then layers 2-4 as 13
+       int8 blocks (ops/int8_bottleneck.py);
+     - ``"bf16"`` (``AIRPOSE_BENCH_BF16=1`` in the root bench): stem → fused
+       layer1 kernel → layers 2-4;
   2. three IEF steps, each view reading the other's pose and shape;
   3. 6D → rotmat;
   4. SMPL-X forward (10,475 vertices, 127 joints), skinned by the kernel;
   5. cam_frame_and_project.
 
 Each stage runs inside a ``torch.profiler.record_function`` span (trunk,
-ief, smplx, project; the trunk's stem, layer1 and tail inside it), which
+ief, smplx, project, and the trunk's own spans inside it), which
 ``profile_chain.py`` reads; without an active profiler a span costs a few
 microseconds of host time.
 """
 
-from typing import Optional, Tuple
+from functools import partial
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,9 +32,37 @@ from . import resolve_device
 from .bodymodel.smplx import SMPLXParams, smplx_forward, synthetic_smplx_params
 from .geometry.rotations import rot6d_to_rotmat
 from .models.airpose import AirPoseTwoView
-from .ops.fused_bottleneck import (StageOps, resnet50_fused_infer,
-                                   stage1_params_from_state_dict)
+from .ops.fused_bottleneck import resnet50_fused_infer, stage1_params_from_state_dict
+from .ops.int8_bottleneck import quantize_trunk_blocks, resnet50_int8_block_infer
+from .ops.int8_trunk import (calibrate_act_scales, quantize_trunk_params,
+                             resnet50_int8_infer)
 from .train.losses import cam_frame_and_project
+
+TRUNKS = ("bf16", "int8", "int8_block")
+
+# A prepared trunk: features(crops (N, H, W, 3), use_kernels=True) → (N, 2048) f32.
+Features = Callable[..., torch.Tensor]
+
+
+@torch.no_grad()
+def chain_ops(model: AirPoseTwoView, trunk: str = "bf16",
+              calib_images: Optional[torch.Tensor] = None) -> Features:
+    """Prepare ``trunk`` (one of TRUNKS) from ``model``'s weights once and
+    return its features function, a ``functools.partial`` of the trunk's
+    infer function whose ``args``/``keywords`` hold the operands. The int8
+    trunks quantize the folded trunk and calibrate their activation scales
+    on ``calib_images`` (N, H, W, 3), as the root bench.py:98-102 does."""
+    if trunk == "bf16":
+        return partial(resnet50_fused_infer, model.trunk,
+                       stage_ops=stage1_params_from_state_dict(model.trunk.state_dict()))
+    if trunk not in TRUNKS:
+        raise ValueError(f"unknown trunk {trunk!r}, expected one of {TRUNKS}")
+    qparams = quantize_trunk_params(model.trunk.state_dict())
+    scales = calibrate_act_scales(qparams, calib_images)
+    if trunk == "int8":
+        return partial(resnet50_int8_infer, qparams, act_scales=scales)
+    return partial(resnet50_int8_block_infer, model.trunk,
+                   quantize_trunk_blocks(qparams, scales))
 
 
 @torch.no_grad()
@@ -38,18 +73,19 @@ def perceive(
     bb: torch.Tensor,             # (B, 2, 3)
     init_position: torch.Tensor,  # (B, 2, 3)
     intr: torch.Tensor,           # (B, 2, 3, 3)
-    stage_ops: Optional[StageOps] = None,
+    features: Optional[Features] = None,
     use_kernels: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (vertices (B, 2, V, 3), j2d (B, 2, 127, 2)). Runs where its inputs
     are: kernels on the card, their plain versions on the CPU, or the plain
-    versions on the card with ``use_kernels=False``. ``stage_ops`` are the
-    folded layer1 operands (``build_perception`` makes them once)."""
+    versions on the card with ``use_kernels=False``. ``features`` is the
+    trunk that ``chain_ops`` (or ``build_perception``) prepared; ``None``
+    prepares the bf16 trunk at the call."""
     B = images.shape[0]
+    features = features or chain_ops(model, "bf16")
     with record_function("trunk"):
-        xf = resnet50_fused_infer(
-            model.trunk, images.reshape((B * 2,) + images.shape[2:]), stage_ops,
-            use_kernels=use_kernels).reshape(B, 2, -1)
+        xf = features(images.reshape((B * 2,) + images.shape[2:]),
+                      use_kernels=use_kernels).reshape(B, 2, -1)
     with record_function("ief"):
         out = model.from_features(xf, bb, init_position)
         trans = out.pose[..., :3] / C.TRANS_SCALE
@@ -71,16 +107,20 @@ def perceive(
     return verts, j2d
 
 
-def build_perception(device=None, seed: int = 0, num_vertices: int = 10475
-                     ) -> Tuple[AirPoseTwoView, SMPLXParams, StageOps]:
+def build_perception(device=None, seed: int = 0, num_vertices: int = 10475,
+                     trunk: str = "bf16") -> Tuple[AirPoseTwoView, SMPLXParams, Features]:
     """The bf16 AirPoseTwoView (random weights from ``seed``) in eval mode,
-    the synthetic SMPL-X model and the folded layer1 operands, on ``device``
-    (``None`` → CUDA; raises without it)."""
+    the synthetic SMPL-X model and ``trunk``'s features function, on
+    ``device`` (``None`` → CUDA; raises without it). The int8 trunks
+    calibrate on the two 224² crops of ``bench_inputs``' first frame, as the
+    root bench does."""
     dev = resolve_device(device)
     model = AirPoseTwoView(dtype=torch.bfloat16, seed=seed).eval().to(dev)
     smplx_params = synthetic_smplx_params(num_vertices=num_vertices).to(dev)
-    stage_ops = stage1_params_from_state_dict(model.trunk.state_dict())
-    return model, smplx_params, stage_ops
+    calib = None
+    if trunk != "bf16":
+        calib = bench_inputs(1, dev)[0][0]
+    return model, smplx_params, chain_ops(model, trunk, calib)
 
 
 def bench_inputs(batch: int, device=None, seed: int = 0, crop: int = C.CROP_SIZE):

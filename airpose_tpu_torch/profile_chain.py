@@ -1,16 +1,19 @@
 """Where the perception chain's device time goes, on one CUDA device.
 
-  python -m airpose_tpu_torch.profile_chain [--trace out.json]
+  python -m airpose_tpu_torch.profile_chain [--trunk int8|int8_block|bf16] [--trace out.json]
 
-Runs the bf16 perception chain (perception.perceive) at B = 64 frames under
-torch.profiler for 5 steps after a warm-up and prints one JSON line:
+Runs the perception chain (perception.perceive) with the chosen trunk
+(default ``int8``, the bench's) at B = 64 frames under torch.profiler for 5
+steps after a warm-up and prints one JSON line:
   - ``wall_ms``: CUDA-event time per chain step without the profiler, and
     ``wall_ms_profiled`` with it;
   - ``busy_ms``: summed device time of all kernels and copies per step (one
     stream, so they do not overlap) and ``idle_share`` = 1 − busy / wall_ms;
   - ``spans_ms``: device time per step of the kernels launched inside each
-    record_function span of the chain (the trunk's stem, layer1 and tail;
-    ief; smplx; project), and each span's top kernels;
+    record_function span of the chain (the trunk's own spans: stem and
+    int8_layers for ``int8``; front and int8_layers for ``int8_block``;
+    stem, layer1 and tail for ``bf16``; then ief, smplx, project), and each
+    span's top kernels;
   - ``top_kernels``: the kernels with the most device time per step.
 With ``--trace`` it also writes the profiler's Chrome trace to that file.
 """
@@ -24,13 +27,15 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .perception import bench_inputs, build_perception, perceive
+from .perception import TRUNKS, bench_inputs, build_perception, perceive
 
 B, STEPS = 64, 5
-SPANS = ("stem", "layer1", "tail", "ief", "smplx", "project")  # the trunk's three + the rest
+SPANS = ("stem", "front", "layer1", "tail", "int8_layers", "ief", "smplx", "project")
 # The port's own kernels launch through ctypes, not through an aten op, so
 # the profiler's tree does not place them under a span: attribute by name.
-OWN_KERNELS = {"bottleneck_kernel": "layer1", "skinning_kernel": "smplx"}
+# Both int8 trunks launch the int8 conv kernel only in their int8_layers span.
+OWN_KERNELS = {"bottleneck_kernel": "layer1", "skinning_kernel": "smplx",
+               "int8_conv_kernel": "int8_layers"}
 
 
 def _span_kernels(span):
@@ -45,12 +50,13 @@ def _span_kernels(span):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trunk", choices=TRUNKS, default="int8")
     ap.add_argument("--trace", help="write the Chrome trace to this file")
-    trace = ap.parse_args(argv).trace
-    model, smplx_params, stage_ops = build_perception()
+    args = ap.parse_args(argv)
+    model, smplx_params, features = build_perception(trunk=args.trunk)
     inputs = bench_inputs(B)
     for _ in range(3):
-        perceive(model, smplx_params, *inputs, stage_ops=stage_ops)
+        perceive(model, smplx_params, *inputs, features)
     torch.cuda.synchronize()
 
     def timed_steps():
@@ -58,7 +64,7 @@ def main(argv=None):
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(STEPS):
-            perceive(model, smplx_params, *inputs, stage_ops=stage_ops)
+            perceive(model, smplx_params, *inputs, features)
         stop.record()
         stop.synchronize()
         return start.elapsed_time(stop) / STEPS
@@ -87,6 +93,7 @@ def main(argv=None):
                 per_kernel[e.name] = per_kernel.get(e.name, 0.0) + ms
     print(json.dumps({
         "batch": B,
+        "trunk": args.trunk,
         "device": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=30).stdout.strip().splitlines()[:1],
@@ -103,8 +110,8 @@ def main(argv=None):
         "top_kernels": [{"name": n[:100], "ms": ms} for n, ms in
                         sorted(totals.items(), key=lambda kv: -kv[1])[:12]],
     }))
-    if trace:
-        prof.export_chrome_trace(trace)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,11 @@ airpose_tpu/train/checkpoint.py::export_reference_checkpoint writes: keys
 under ``model.``, OIHW convolutions, (out, in) linears, BatchNorm as
 weight/bias/running_mean/running_var/num_batches_tracked, the mean-parameter
 buffers, and the dead ``deccam`` head the reference net defines but never
-calls.
+calls. ``int8_operands_from_jax`` carries the JAX package's quantized int8
+trunk operands and calibration table.
 """
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -65,6 +66,53 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     sd["model.deccam.weight"] = torch.zeros(3, 1024)
     sd["model.deccam.bias"] = torch.zeros(3)
     return sd
+
+
+def _int8_conv(kernel) -> torch.Tensor:
+    """HWIO int8 kernel → (Cout, kh·kw·Cin), k = (kh·KW + kw)·Cin + cin."""
+    k = np.asarray(kernel, np.int8)
+    return torch.from_numpy(k.transpose(3, 0, 1, 2).reshape(k.shape[3], -1).copy())
+
+
+def _bf16_oihw(kernel) -> torch.Tensor:
+    return _t(np.asarray(kernel, np.float32).transpose(3, 2, 0, 1)).to(torch.bfloat16)
+
+
+def int8_operands_from_jax(qparams: Mapping, act_scales: Mapping,
+                           pblocks: Optional[Mapping] = None):
+    """The JAX package's int8 operands, as numpy, → the port's.
+
+    ``qparams`` is ``airpose_tpu.ops.int8_trunk.quantize_trunk_params``
+    output (HWIO int8 ``wq``, bf16 ``wf``), ``act_scales`` its
+    ``calibrate_act_scales`` table, ``pblocks`` (optional)
+    ``int8_bottleneck.quantize_trunk_pallas`` output ((Cin, Cout) 1×1 and
+    (9·Cmid, Cmid) 3×3 matrices). Returns (qparams, act_scales, blocks) as
+    ``ops/int8_trunk.quantize_trunk_params``, ``calibrate_act_scales`` and
+    ``ops/int8_bottleneck.quantize_trunk_blocks`` give them (blocks is None
+    without ``pblocks``), so both packages compute on identical int8
+    weights and scales."""
+    out = {"stem": {"w": _bf16_oihw(qparams["stem"]["w"]), "b": _t(qparams["stem"]["b"])}}
+    for name, blk in qparams.items():
+        if name != "stem":
+            out[name] = {conv: {"wq": _int8_conv(q["wq"]), "ws": _t(q["ws"]),
+                                "b": _t(q["b"]), "wf": _bf16_oihw(q["wf"])}
+                         for conv, q in blk.items()}
+    scales = {k: float(v) for k, v in act_scales.items()}
+    if pblocks is None:
+        return out, scales, None
+    blocks = []
+    n = len(pblocks["blocks"])
+    for i, blk in enumerate(pblocks["blocks"]):
+        b = {"stride": 2 if "wp" in blk else 1, "out_int8": i + 1 < n}
+        for k, v in blk.items():
+            if k in ("w1", "w3", "wp", "w2"):  # (K, Cout) → (Cout, K)
+                b[k] = torch.from_numpy(np.ascontiguousarray(np.asarray(v, np.int8).T))
+            elif k == "r":
+                b[k] = _t(np.reshape(v, ()))
+            elif k != "meta":
+                b[k] = _t(v)
+        blocks.append(b)
+    return out, scales, {"s_in": float(pblocks["s_in"]), "blocks": blocks}
 
 
 def _module_key(key: str) -> str:

@@ -13,6 +13,8 @@ import torch
 from airpose_tpu_torch.bodymodel import cuda_lbs
 from airpose_tpu_torch.models.resnet import ResNet50
 from airpose_tpu_torch.ops import fused_bottleneck as fb
+from airpose_tpu_torch.ops import int8_bottleneck as ib
+from airpose_tpu_torch.ops import int8_conv as ic
 
 
 @pytest.fixture
@@ -97,3 +99,114 @@ def test_fused_stage1_kernel_rejects_bad_inputs(cuda, stage_ops):
         fb.fused_stage1(torch.zeros(1, 8, 8, 64, device=cuda), ops)
     with pytest.raises(ValueError, match="width"):
         fb.fused_stage1(torch.zeros(1, 8, 200, 64, device=cuda, dtype=torch.bfloat16), ops)
+
+
+def _int8_conv_inputs(N, H, W, cin, cout, ksize, stride, mode, device, seed=0):
+    """x, w, m, b and the epilogue keywords of one ``mode``; m scales a typical
+    accumulator into ~[-60, 60]."""
+    rng = np.random.default_rng(seed)
+    K = ksize * ksize * cin
+    x = rng.integers(-127, 128, size=(N, H, W, cin)).astype(np.int8)
+    w = rng.integers(-127, 128, size=(cout, K)).astype(np.int8)
+    m = (rng.uniform(0.5, 1.5, cout) * 20.0 / (np.sqrt(K) * 127 * 73)).astype(np.float32)
+    b = rng.normal(0, 5.0, cout).astype(np.float32)
+    t = {k: torch.from_numpy(v).to(device) for k, v in (("x", x), ("w", w), ("m", m), ("b", b))}
+    ho, wo = ic.out_size(H, ksize, stride), ic.out_size(W, ksize, stride)
+    res_shape = (N, ho, wo, cout)
+    kw = {"requant": dict(relu=True),
+          "f32": dict(out_dtype=torch.float32),
+          "block_end": dict(res=torch.from_numpy(rng.integers(0, 128, size=res_shape).astype(np.int8)),
+                            r=torch.tensor(0.37), relu=True),
+          "block_end_bf16": dict(res=torch.from_numpy(rng.normal(0, 20, res_shape).astype(np.float32)),
+                                 relu=True, out_dtype=torch.bfloat16),
+          "qconv": dict(res=torch.from_numpy(rng.normal(0, 20, res_shape).astype(np.float32)
+                                             ).to(torch.bfloat16),
+                        relu=True, out_dtype=torch.bfloat16)}[mode]
+    kw = {k: (v.to(device) if torch.is_tensor(v) else v) for k, v in kw.items()}
+    return t, kw
+
+
+def _int8_block_operands(cin, cmid, cout, stride, out_int8, device, seed=0):
+    """Random block operands in the kernel's layout, scaled so that each
+    requantized map spans the int8 range."""
+    rng = np.random.default_rng(seed)
+
+    def conv(co, k):
+        w = torch.from_numpy(rng.integers(-127, 128, size=(co, k)).astype(np.int8))
+        m = torch.from_numpy((rng.uniform(0.5, 1.5, co) * 40.0 / (np.sqrt(k) * 127 * 64)
+                              ).astype(np.float32))
+        return w, m, torch.from_numpy(rng.normal(0, 5.0, co).astype(np.float32))
+
+    blk = {"stride": stride, "out_int8": out_int8}
+    for i, (co, k) in enumerate(((cmid, cin), (cmid, 9 * cmid), (cout, cmid)), 1):
+        blk[f"w{i}"], blk[f"m{i}"], blk[f"b{i}"] = conv(co, k)
+    if stride == 2:
+        blk["wp"], blk["mp"], blk["bp"] = conv(cout, cin)
+    else:
+        blk["r"] = torch.tensor(0.8)
+    return {k: (v.to(device) if torch.is_tensor(v) else v) for k, v in blk.items()}
+
+
+def test_int8_conv_cuda_rejects_cpu_tensors():
+    t, kw = _int8_conv_inputs(1, 4, 4, 32, 8, 1, 1, "requant", "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        ic.int8_conv_cuda(t["x"], t["w"], t["m"], t["b"], 1, 1, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["requant", "f32", "block_end", "block_end_bf16", "qconv"])
+@pytest.mark.parametrize("ksize,stride", [(1, 1), (1, 2), (3, 1), (3, 2)])
+@pytest.mark.parametrize("N,H,W,cin,cout", [(3, 9, 13, 96, 40), (4, 28, 28, 256, 512)])
+def test_int8_conv_kernel_matches_reference(cuda, N, H, W, cin, cout, ksize, stride, mode):
+    """Exact: integer accumulation and the same f32 operations, each
+    rounded on its own."""
+    t, kw = _int8_conv_inputs(N, H, W, cin, cout, ksize, stride, mode, cuda)
+    n = ic.launches
+    got = ic.int8_conv(t["x"], t["w"], t["m"], t["b"], ksize, stride, **kw)
+    assert ic.launches == n + 1
+    want = ic.int8_conv_reference(t["x"], t["w"], t["m"], t["b"], ksize, stride, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cmid,cout,stride,out_int8,hw", [
+    (256, 128, 512, 2, True, 56),      # layer2_0: projection, stride 2
+    (512, 128, 512, 1, True, 28),      # layer2_1: identity
+    (2048, 512, 2048, 1, False, 7),    # layer4_2: the bf16-final block
+], ids=["projection", "identity", "bf16_final"])
+def test_int8_block_kernel_matches_reference(cuda, cin, cmid, cout, stride, out_int8, hw):
+    blk = _int8_block_operands(cin, cmid, cout, stride, out_int8, cuda)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(0, 128, size=(4, hw, hw, cin)).astype(np.int8)).to(cuda)
+    nb, nc = ib.launches, ic.launches
+    got = ib.int8_block(x, blk)
+    assert ib.launches == nb + 1 and ic.launches == nc + (4 if stride == 2 else 3)
+    want = ib.int8_block_reference(x, blk)
+    torch.cuda.synchronize()
+    assert got.dtype == (torch.int8 if out_int8 else torch.bfloat16)
+    diff = (got.float() - want.float()).abs()
+    assert diff.max().item() <= 1.0 and (diff > 0).float().mean().item() < 5e-3
+    assert float(want.float().abs().mean()) > 1.0, "the block output is trivially small"
+
+
+@pytest.mark.cuda
+def test_int8_conv_kernel_rejects_bad_inputs(cuda):
+    t, kw = _int8_conv_inputs(2, 8, 8, 64, 64, 3, 1, "requant", cuda)
+    x, w, m, b = t["x"], t["w"], t["m"], t["b"]
+    with pytest.raises(ValueError, match="int8"):
+        ic.int8_conv(x.float(), w, m, b, 3, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        ic.int8_conv(x, w, m.double(), b, 3, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        ic.int8_conv(x.transpose(1, 2).contiguous().transpose(1, 2), w, m, b, 3, **kw)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ic.int8_conv(x[..., :48].contiguous(), w[:, :9 * 48].contiguous(), m, b, 3, **kw)
+    with pytest.raises(ValueError, match="stride"):
+        ic.int8_conv(x, w, m, b, 3, 3, **kw)
+    with pytest.raises(ValueError, match="scale r"):
+        ic.int8_conv(x, w, m, b, 3, res=torch.zeros_like(x))
+    blk = _int8_block_operands(64, 32, 64, 2, True, cuda)
+    with pytest.raises(ValueError, match="even"):
+        ib.int8_block(torch.zeros(1, 7, 8, 64, dtype=torch.int8, device=cuda), blk)
