@@ -76,14 +76,15 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def function(lib: str, name: str, n_ptr: int, n_int: int):
+def function(lib: str, name: str, n_ptr: int, n_int: int, n_float: int = 0):
     """The C function ``name`` of ``csrc/<lib>.cu``, typed as ``n_ptr``
-    pointers, then ``n_int`` ints, then the stream; returns a CUDA error code."""
+    pointers, then ``n_int`` ints, then ``n_float`` floats, then the stream;
+    returns a CUDA error code."""
     if lib not in _libs:
         build_all()
     fn = getattr(_libs[lib], name)
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] * n_float + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

@@ -5,8 +5,10 @@ Counterpart of airpose_tpu/ops/fused_bottleneck.py (``fused_stage1``). In
 eval mode, with BatchNorm folded into the convolutions, layer1 runs as
 three bottleneck blocks (block 0 64 → 256 with a projection shortcut,
 blocks 1-2 with identity shortcuts) over (B, 56, 56, 64) bf16 NHWC. The
-kernel keeps y1 and y2 on chip and launches once per block; the source
-explains the tiling and what bounds it on an H100. ``fused_stage1`` takes
+kernel keeps y1 and y2 on chip and launches once per block, a persistent
+grid whose blocks hold the block's weights in shared memory and walk over
+bands of image rows; the source explains the tiling and what bounds it on
+an H100. ``fused_stage1`` takes
 the plain version only for CPU tensors; on CUDA tensors it launches the
 kernel or raises.
 
@@ -27,7 +29,7 @@ from . import _build
 C_IN = 64           # layer1 input channels (after stem+maxpool)
 C_MID = 64
 C_OUT = 256
-MAX_WIDTH = 160     # the kernel's shared-memory tile holds rows of at most this width
+MAX_WIDTH = 128     # beside the resident weights, shared memory holds bands of at most this width
 
 launches = 0  # kernel launches since the last reset (one per block)
 

@@ -6,9 +6,17 @@ The trunk's folded-BN convolutions are quantized for inference:
   * activations: symmetric per-tensor int8, static scales from
     ``calibrate_act_scales`` (or dynamic, ``act_scales=None``);
   * each conv runs as the int8 kernel of ops/int8_conv.py with int32
-    accumulation and the f32 epilogue ``bf16(f32(acc)·(xs·ws) + b)``; bf16
-    is carried between convs, and the residual add and relu of a block's
-    conv3 are fused into that epilogue;
+    accumulation and the f32 epilogue ``bf16(f32(acc)·(xs·ws) + b)``; the
+    residual add and relu of a block's conv3 are fused into that epilogue;
+  * with static scales, each conv's epilogue also quantizes its bf16 result
+    at the next conv's scale (ops/int8_conv.py's ``qscale``), as XLA fused
+    ``_quantize_act`` into the producing conv on the TPU: conv1 and conv2
+    write only int8, conv3 writes the bf16 block output (the next block's
+    residual) and its int8 at the next block's conv1 scale, which the next
+    projection reuses when its scale is the same. Torch quantizes only the
+    stem's output and the input of an int8 stage after a bf16 one; the
+    dynamic path (``act_scales=None``, calibration) and the clip-rate
+    diagnostic quantize every conv input in torch, on the bf16 map;
   * the stem stays a folded bf16 conv; ``int8_stages`` keeps other stages
     as folded bf16 convs too.
 
@@ -26,10 +34,12 @@ from torch.nn import functional as F
 from torch.profiler import record_function
 
 from .fused_bottleneck import fold_bn_into_conv
-from .int8_conv import int8_conv, int8_conv_reference
+from .int8_conv import int8_conv, int8_conv_reference, quantize
 
 BF16 = torch.bfloat16
 STAGES = (3, 4, 6, 3)
+
+quantize_calls = 0  # torch _quantize_act calls since the last reset (a plain integer)
 
 
 def quantize_weight(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -47,13 +57,14 @@ def _quantize_act(x: torch.Tensor, s=None, clip_collect: Optional[Dict] = None,
     (int8 NHWC contiguous, scale). ``s=None`` takes the dynamic scale
     max|x|/127; with a static ``s``, ``clip_collect[name]`` records the
     fraction of values beyond 127.5·s, which the clip changes."""
+    global quantize_calls
+    quantize_calls += 1
     x = x.float()
     if s is None:
         s = (x.abs().amax() / 127.0).clamp_min(1e-12)
     elif clip_collect is not None:
         clip_collect[name] = (x.abs() > 127.5 * s).float().mean()
-    q = torch.round(x / s).clamp_(-127, 127).to(torch.int8)
-    return q.contiguous(), s
+    return quantize(x, s).contiguous(), s
 
 
 def _conv_entry(sd: Mapping[str, torch.Tensor], conv: str, bn: str) -> Dict[str, torch.Tensor]:
@@ -100,11 +111,21 @@ def _qconv(x: torch.Tensor, conv: Dict, ksize: int, stride: int = 1,
     xq, xs = _quantize_act(x, act_scale, clip_collect, name)
     if collect is not None:
         collect[name] = xs
-    m = xs * conv["ws"]
+    return _conv_q(xq, xs * conv["ws"], conv, ksize, stride, relu, res, conv_fn)
+
+
+def _conv_q(xq: torch.Tensor, m: torch.Tensor, conv: Dict, ksize: int, stride: int = 1,
+            relu: bool = False, res: Optional[torch.Tensor] = None,
+            conv_fn: Callable = int8_conv, qscale: Optional[float] = None,
+            out_dtype: torch.dtype = BF16):
+    """One int8 conv of ``xq`` with the per-channel multiplier ``m`` = xs·ws
+    (xs the scale of ``xq``) through ``conv_fn``: bf16 out, or with
+    ``qscale`` the int8 of that bf16 result (``out_dtype`` int8) or both
+    (bf16)."""
     if res is not None:
         res = res.contiguous()
     return conv_fn(xq, conv["wq"], m, conv["b"], ksize, stride, res=res,
-                   relu=relu, out_dtype=BF16)
+                   relu=relu, out_dtype=out_dtype, qscale=qscale)
 
 
 def _fconv(x: torch.Tensor, conv: Dict, stride: int = 1) -> torch.Tensor:
@@ -121,7 +142,8 @@ def resnet50_int8_infer(qparams: Dict, x: torch.Tensor, act_scales: Optional[Dic
                         _clip_collect: Optional[Dict] = None) -> torch.Tensor:
     """(N, H, W, 3) f32 → (N, 2048) f32 GAP feature through the int8 convs.
 
-    ``act_scales`` makes activation quantization static; without it each
+    ``act_scales`` makes activation quantization static, and then each conv
+    quantizes its output for the next conv in its epilogue; without it each
     conv input takes its dynamic scale. Stages outside ``int8_stages`` run
     folded-BN bf16 convs. Each int8 conv goes through ``conv``, any function
     with the signature of ``int8_conv.int8_conv`` (as
@@ -129,43 +151,90 @@ def resnet50_int8_infer(qparams: Dict, x: torch.Tensor, act_scales: Optional[Dic
     with ``use_kernels=False`` its plain version on any device. The GAP is
     an f32 mean over the bf16 map, not rounded to bf16."""
     conv_fn = conv or (int8_conv if use_kernels else int8_conv_reference)
+    fused = act_scales is not None and _collect is None and _clip_collect is None
+    order = [(stage, blk) for stage, blocks in enumerate(STAGES, start=1)
+             for blk in range(blocks)]
 
     def scale(name):
         return None if act_scales is None else act_scales[name]
 
+    def next_scale(i):
+        """The conv1 scale of block i + 1 where that block is int8, else None."""
+        if i + 1 == len(order) or order[i + 1][0] not in int8_stages:
+            return None
+        return act_scales["layer{}_{}/conv1".format(*order[i + 1])]
+
     with record_function("stem"):
         stem = qparams["stem"]
         h = _nhwc(F.conv2d(_nchw(x).to(BF16), stem["w"], stride=2, padding=3))
-        h = torch.relu((h.float() + stem["b"]).to(BF16))
+        # relu(bf16(f32(h) + b)) is monotone in h, so it commutes with the
+        # max: pool first, then add and relu on a quarter of the values, in
+        # place (bf16 out, without an f32 map)
         h = _nhwc(F.max_pool2d(_nchw(h), 3, stride=2, padding=1))
+        h = h.add_(stem["b"]).relu_()
 
     with record_function("int8_layers"):
-        for stage, blocks in enumerate(STAGES, start=1):
+        # the static path's per-conv multipliers xs·ws, in one launch
+        convs = [(f"layer{st}_{blk}", key) for st, blk in order if fused and st in int8_stages
+                 for key in ("proj", "conv1", "conv2", "conv3") if key in qparams[f"layer{st}_{blk}"]]
+        mult = dict(zip(convs, torch._foreach_mul(
+            [qparams[b][key]["ws"] for b, key in convs],
+            [float(act_scales[f"{b}/{key}"]) for b, key in convs]))) if convs else {}
+        hq = None  # h at the next block's conv1 scale, where conv3 wrote it
+        for i, (stage, blk) in enumerate(order):
             int8 = stage in int8_stages
-            for blk in range(blocks):
-                bname = f"layer{stage}_{blk}"
-                q = qparams[bname]
-                stride = 2 if (stage > 1 and blk == 0) else 1
+            bname = f"layer{stage}_{blk}"
+            q = qparams[bname]
+            stride = 2 if (stage > 1 and blk == 0) else 1
 
-                def qconv(t, key, ksize, s=1, **kw):
-                    name = f"{bname}/{key}"
-                    return _qconv(t, q[key], ksize, s, scale(name), conv_fn=conv_fn,
-                                  collect=_collect, clip_collect=_clip_collect,
-                                  name=name, **kw)
+            def qconv(t, key, ksize, s=1, **kw):
+                name = f"{bname}/{key}"
+                return _qconv(t, q[key], ksize, s, scale(name), conv_fn=conv_fn,
+                              collect=_collect, clip_collect=_clip_collect,
+                              name=name, **kw)
 
-                if "proj" in q:
-                    res = qconv(h, "proj", 1, stride) if int8 else _fconv(h, q["proj"], stride)
-                else:
-                    res = h
-                if int8:
-                    y = qconv(h, "conv1", 1, relu=True)
-                    y = qconv(y, "conv2", 3, stride, relu=True)
-                    h = qconv(y, "conv3", 1, relu=True, res=res)
-                else:
-                    y = torch.relu(_fconv(h, q["conv1"]))
-                    y = torch.relu(_fconv(y, q["conv2"], stride))
-                    h = torch.relu(_fconv(y, q["conv3"]) + res)
+            if int8 and fused:
+                h, hq = _static_block(h, hq, q, bname, stride, act_scales, mult,
+                                      next_scale(i), conv_fn)
+                continue
+            if "proj" in q:
+                res = qconv(h, "proj", 1, stride) if int8 else _fconv(h, q["proj"], stride)
+            else:
+                res = h
+            if int8:
+                y = qconv(h, "conv1", 1, relu=True)
+                y = qconv(y, "conv2", 3, stride, relu=True)
+                h = qconv(y, "conv3", 1, relu=True, res=res)
+            else:
+                y = torch.relu(_fconv(h, q["conv1"]))
+                y = torch.relu(_fconv(y, q["conv2"], stride))
+                h = torch.relu(_fconv(y, q["conv3"]) + res)
         return h.float().mean(dim=(1, 2))
+
+
+def _static_block(h: torch.Tensor, hq: Optional[torch.Tensor], q: Dict, bname: str,
+                  stride: int, act_scales: Mapping, mult: Mapping,
+                  s_next: Optional[float], conv_fn: Callable):
+    """One int8 bottleneck block with static scales, each conv quantizing
+    its output for the next conv. ``h`` is the bf16 block input and ``hq``
+    its int8 at this block's conv1 scale (None: quantized here in torch);
+    ``mult[(bname, conv)]`` is each conv's multiplier xs·ws.
+    → (bf16 block output, its int8 at ``s_next``, or None without one)."""
+    s1, s2, s3 = (act_scales[f"{bname}/conv{i}"] for i in (1, 2, 3))
+    if hq is None:
+        hq, _ = _quantize_act(h, s1)
+    res = h
+    if "proj" in q:
+        sp = act_scales[f"{bname}/proj"]
+        xp = hq if sp == s1 else _quantize_act(h, sp)[0]
+        res = _conv_q(xp, mult[bname, "proj"], q["proj"], 1, stride, conv_fn=conv_fn)
+    y = _conv_q(hq, mult[bname, "conv1"], q["conv1"], 1, relu=True, conv_fn=conv_fn,
+                qscale=s2, out_dtype=torch.int8)
+    y = _conv_q(y, mult[bname, "conv2"], q["conv2"], 3, stride, relu=True, conv_fn=conv_fn,
+                qscale=s3, out_dtype=torch.int8)
+    out = _conv_q(y, mult[bname, "conv3"], q["conv3"], 1, relu=True, res=res,
+                  conv_fn=conv_fn, qscale=s_next)
+    return out if s_next is not None else (out, None)
 
 
 def calibrate_act_scales(qparams: Dict, sample_x: torch.Tensor) -> Dict[str, float]:

@@ -14,14 +14,17 @@ Phases, each of which exits non-zero on failure:
      and agree with the same chain through the plain versions, then
      two_view_fps from CUDA events;
   5. the int8 conv kernel vs its plain version, exact, in every epilogue
-     mode at layer1's 3×3 (128, 56, 56, 64) and layer2_0's 3×3/2
-     (128, 56, 56, 128); then the 52 convs of the int8 trunk at 128 crops,
-     replayed through the kernel, the plain version and torch._int_mm;
+     mode (the static trunk's requant at the next conv's scale, int8 alone
+     and bf16 + int8, among them) at layer1's 3×3 (128, 56, 56, 64) and
+     layer2_0's 3×3/2 (128, 56, 56, 128); then the 52 convs of the int8
+     trunk at 128 crops, as the trunk makes them, replayed through the
+     kernel, the plain version and torch._int_mm;
   6. the 13 int8 blocks of layers 2-4 chained at 128 crops of 224²: each
      within 1 int8 step on < 0.5% of elements of its plain version, with
      kernel, plain, torch._int_mm and bound times;
   7. the int8 chain and the int8-block chain at B = 64: the int8 conv
-     kernel and skinning must launch, outputs must be finite, each trunk's
+     kernel and skinning must launch, the int8 chain must quantize in torch
+     once (the stem's output), outputs must be finite, each trunk's
      features must equal those of its plain version and each chain agree
      with its plain chain, the features must correlate > 0.9 with the bf16
      trunk's; then two_view_fps of each.
@@ -233,7 +236,7 @@ def phase_chain(dev):
 
 
 def int_mm_conv(x, w, m, b, ksize, stride=1, res=None, r=None, relu=False,
-                out_dtype=torch.int8):
+                out_dtype=torch.int8, qscale=None):
     """The library yardstick for one int8 conv (the port never calls it):
     im2col by torch indexing, torch._int_mm (cuBLASLt's s8 GEMM), then the
     kernel's epilogue in torch."""
@@ -249,21 +252,16 @@ def int_mm_conv(x, w, m, b, ksize, stride=1, res=None, r=None, relu=False,
                              dj:dj + stride * (wo - 1) + 1:stride]
                           for di in range(3) for dj in range(3)], dim=-1)
     acc = torch._int_mm(cols.reshape(N * ho * wo, -1), w.t())
-    return ic.epilogue(acc.view(N, ho, wo, -1), m, b, res, r, relu, out_dtype)
+    return ic.epilogue(acc.view(N, ho, wo, -1), m, b, res, r, relu, out_dtype, qscale)
 
 
-def conv_cost(x, w, ksize, stride, res, out_dtype):
-    """(operations, bytes) one int8 conv must do and move: each input read
-    once (x, w, m, b, the residual), the output written once."""
-    from airpose_tpu_torch.ops import int8_conv as ic
-
-    N, H, W, _ = x.shape
-    cout, K = w.shape
-    M = N * ic.out_size(H, ksize, stride) * ic.out_size(W, ksize, stride)
-    n_bytes = (x.numel() + w.numel() + 8 * cout
-               + (0 if res is None else res.numel() * res.element_size())
-               + M * cout * torch.empty((), dtype=out_dtype).element_size())
-    return 2 * M * K * cout, n_bytes
+def max_diff(got, want):
+    """max |got − want| over an output or a (bf16, int8) pair of outputs."""
+    if isinstance(got, tuple):
+        return max(max_diff(g, w) for g, w in zip(got, want))
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{got.dtype} {tuple(got.shape)} against {want.dtype} {tuple(want.shape)}")
+    return (got.float() - want.float()).abs().max().item()
 
 
 def phase_int8_conv(dev, qparams, act_scales, crops):
@@ -286,29 +284,41 @@ def phase_int8_conv(dev, qparams, act_scales, crops):
         b = torch.from_numpy(rng.normal(0, 5, cout).astype(np.float32)).to(dev)
         shape = (N, ic.out_size(H, ksize, stride), ic.out_size(W, ksize, stride), cout)
         res_f = torch.from_numpy(rng.normal(0, 20, shape).astype(np.float32)).to(dev)
+        # the requant scale 0.3 puts the largest values past the int8 clip
         modes = {"requant": dict(relu=True), "f32": dict(out_dtype=torch.float32),
                  "block_end": dict(res=(res_f.abs() % 128).to(torch.int8),
                                    r=torch.tensor(0.37, device=dev), relu=True),
                  "block_end_bf16": dict(res=res_f, relu=True, out_dtype=bf16),
-                 "qconv": dict(res=res_f.to(bf16), relu=True, out_dtype=bf16)}
+                 "qconv": dict(res=res_f.to(bf16), relu=True, out_dtype=bf16),
+                 "qconv_quant": dict(relu=True, out_dtype=torch.int8, qscale=0.3),
+                 "qconv_dual": dict(res=res_f.to(bf16), relu=True, out_dtype=bf16,
+                                    qscale=0.3)}
         for mode, kw in modes.items():
             got = ic.int8_conv(x, w, m, b, ksize, stride, **kw)
             want = ic.int8_conv_reference(x, w, m, b, ksize, stride, **kw)
             torch.cuda.synchronize()
-            check(torch.equal(got, want), f"int8 conv {name} {mode}: kernel differs from "
-                  f"its plain version by {(got.float() - want.float()).abs().max().item()}")
-        kw = modes["qconv"]
-        ms = time_ms(lambda: ic.int8_conv(x, w, m, b, ksize, stride, **kw))
-        plain_ms = time_ms(lambda: ic.int8_conv_reference(x, w, m, b, ksize, stride, **kw),
-                           iters=3, warmup=1)
-        library_ms = time_ms(lambda: int_mm_conv(x, w, m, b, ksize, stride, **kw))
-        n_ops, n_bytes = conv_cost(x, w, ksize, stride, kw["res"], bf16)
-        bound_ms, bound_by = bound(n_bytes, n_ops, INT8_OP_PER_S)
-        log(f"int8_conv {name} {(N, H, W, cin)}→{cout}: exact in {len(modes)} modes; "
-            f"kernel {ms:.4f} ms ({n_ops / ms / 1e9:.1f} TOPS), plain {plain_ms:.4f} ms, "
-            f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            diff = max_diff(got, want)
+            check(diff == 0.0, f"int8 conv {name} {mode}: kernel differs from its plain "
+                  f"version by {diff}")
+        q = want[1]
+        check(bool((q.abs() == 127).any() and (q == 0).any()),
+              f"int8 conv {name}: the requant modes clip nothing or relu nothing")
+        for mode in ("qconv", "qconv_dual", "qconv_quant"):
+            kw = modes[mode]
+            ms = time_ms(lambda: ic.int8_conv(x, w, m, b, ksize, stride, **kw))
+            plain_ms = time_ms(lambda: ic.int8_conv_reference(x, w, m, b, ksize, stride, **kw),
+                               iters=3, warmup=1)
+            library_ms = time_ms(lambda: int_mm_conv(x, w, m, b, ksize, stride, **kw))
+            n_ops, n_bytes = ic.conv_cost(x, w, ksize, stride, kw.get("res"), kw["out_dtype"],
+                                       kw.get("qscale"))
+            bound_ms, bound_by = bound(n_bytes, n_ops, INT8_OP_PER_S)
+            log(f"int8_conv {name} {(N, H, W, cin)}→{cout} {mode}: kernel {ms:.4f} ms "
+                f"({n_ops / ms / 1e9:.1f} TOPS), plain {plain_ms:.4f} ms, "
+                f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"int8_conv {name}: exact in {len(modes)} modes")
 
-    # the trunk's 52 convs, captured from one int8 trunk run at 128 crops
+    # the trunk's 52 convs as the static trunk makes them (conv1/conv2 int8
+    # out, conv3 bf16 + int8), captured from one int8 trunk run at 128 crops
     calls = []
 
     def record(*a, **kw):
@@ -317,12 +327,15 @@ def phase_int8_conv(dev, qparams, act_scales, crops):
 
     it.resnet50_int8_infer(qparams, crops, act_scales, conv=record)
     check(len(calls) == 52, f"the int8 trunk made {len(calls)} conv calls, expected 52")
+    n_quant = sum(kw.get("qscale") is not None for _, kw in calls)
+    check(n_quant == 47, f"{n_quant} of the trunk's convs requantize in their epilogue, "
+          "expected 47 (all but the 4 projections and the last conv3)")
     err = 0.0
     for a, kw in calls:
-        got, want = ic.int8_conv(*a, **kw), ic.int8_conv_reference(*a, **kw)
-        err = max(err, (got.float() - want.float()).abs().max().item())
+        err = max(err, max_diff(ic.int8_conv(*a, **kw), ic.int8_conv_reference(*a, **kw)))
     torch.cuda.synchronize()
-    log(f"int8_conv: the trunk's 52 convs, max_abs_err {err} vs the plain version (exact)")
+    log(f"int8_conv: the trunk's 52 convs ({n_quant} requantizing), max_abs_err {err} "
+        "vs the plain version (exact)")
     check(err == 0.0, f"int8 conv kernel differs from its plain version in the trunk: {err}")
 
     def replay(fn):
@@ -334,7 +347,8 @@ def phase_int8_conv(dev, qparams, act_scales, crops):
     library_ms = time_ms(lambda: replay(int_mm_conv), iters=10)
     n_ops = n_bytes = 0
     for (x, w, m, b, ksize, stride), kw in calls:
-        o, nb = conv_cost(x, w, ksize, stride, kw.get("res"), kw["out_dtype"])
+        o, nb = ic.conv_cost(x, w, ksize, stride, kw.get("res"), kw["out_dtype"],
+                          kw.get("qscale"))
         n_ops, n_bytes = n_ops + o, n_bytes + nb
     bound_ms, bound_by = bound(n_bytes, n_ops, INT8_OP_PER_S)
     log(f"int8_conv: 52 convs at 128 crops: {n_ops / 1e9:.1f} GOP, {n_bytes / 1e9:.3f} GB; "
@@ -403,11 +417,13 @@ def phase_int8_blocks(dev, model, blocks, crops):
 def phase_int8_chains(dev, model, smplx_params, chains, inputs, bf16_features):
     """The int8 chain and the int8-block chain at B = 64, each driven with
     the counters at 0, against its plain chain and the bf16 trunk.
-    ``chains``: (name, features, int8 conv launches, int8_block calls)."""
+    ``chains``: (name, features, int8 conv launches, int8_block calls,
+    torch quantize calls of the int8 trunk)."""
     from airpose_tpu_torch.bench import two_view_fps
     from airpose_tpu_torch.bodymodel import cuda_lbs
     from airpose_tpu_torch.ops import int8_bottleneck as ib
     from airpose_tpu_torch.ops import int8_conv as ic
+    from airpose_tpu_torch.ops import int8_trunk as it
     from airpose_tpu_torch.perception import perceive
 
     B = inputs[0].shape[0]
@@ -415,16 +431,18 @@ def phase_int8_chains(dev, model, smplx_params, chains, inputs, bf16_features):
     with torch.no_grad():
         xf_bf16 = bf16_features(crops)
     launches, fps = {}, {}
-    for name, features, n_conv, n_block in chains:
-        cuda_lbs.launches = ic.launches = ib.launches = 0
+    for name, features, n_conv, n_block, n_quant in chains:
+        cuda_lbs.launches = ic.launches = ib.launches = it.quantize_calls = 0
         verts, j2d = perceive(model, smplx_params, *inputs, features)
         torch.cuda.synchronize()
         n = {"int8_conv": ic.launches, "int8_block calls": ib.launches,
-             "lbs_skinning": cuda_lbs.launches}
+             "lbs_skinning": cuda_lbs.launches, "torch quantize calls": it.quantize_calls}
         log(f"{name} chain: launches {n}")
-        check(n == {"int8_conv": n_conv, "int8_block calls": n_block, "lbs_skinning": 1},
+        check(n == {"int8_conv": n_conv, "int8_block calls": n_block, "lbs_skinning": 1,
+                    "torch quantize calls": n_quant},
               f"the {name} path launched {n}, expected {n_conv} int8 conv launches, "
-              f"{n_block} int8_block calls and 1 skinning launch")
+              f"{n_block} int8_block calls, 1 skinning launch and {n_quant} torch "
+              "quantize calls")
         launches[name] = n
         check(tuple(verts.shape) == (B, 2, 10475, 3) and tuple(j2d.shape) == (B, 2, 127, 2),
               f"{name} chain output shapes {tuple(verts.shape)}, {tuple(j2d.shape)}")
@@ -485,7 +503,7 @@ def main():
     kernels.append(phase_int8_blocks(dev, model, blocks, crops))
     int8_launches, int8_fps = phase_int8_chains(
         dev, model, smplx_params,
-        (("int8", int8_features, 52, 0), ("int8_block", block_features, 42, 13)),
+        (("int8", int8_features, 52, 0, 1), ("int8_block", block_features, 42, 13, 0)),
         inputs, chain_ops(model, "bf16"))
     log(f"two_view_fps: bf16 {fps:.1f}, int8 {int8_fps['int8']:.1f}, "
         f"int8_block {int8_fps['int8_block']:.1f}")

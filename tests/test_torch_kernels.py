@@ -79,7 +79,13 @@ def test_skinning_kernel_rejects_bad_inputs(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,h,w", [(4, 56, 56), (3, 9, 13)])
+@pytest.mark.parametrize("B,h,w", [
+    (4, 56, 56),
+    (3, 9, 13),     # a last band of 1 row, narrow rows
+    (1, 56, 56),    # 14 bands: fewer than the persistent grid's blocks
+    (2, 30, 56),    # H not a multiple of the band height
+    (1, 7, 128),    # the widest rows, in bands of one row
+])
 def test_fused_stage1_kernel_matches_reference(cuda, stage_ops, B, h, w):
     ops = [{k: v.to(cuda) for k, v in blk.items()} for blk in stage_ops]
     rng = np.random.default_rng(3)
@@ -103,7 +109,7 @@ def test_fused_stage1_kernel_rejects_bad_inputs(cuda, stage_ops):
 
 def _int8_conv_inputs(N, H, W, cin, cout, ksize, stride, mode, device, seed=0):
     """x, w, m, b and the epilogue keywords of one ``mode``; m scales a typical
-    accumulator into ~[-60, 60]."""
+    accumulator into ~[-60, 60], so the requant modes' scale 0.3 clips."""
     rng = np.random.default_rng(seed)
     K = ksize * ksize * cin
     x = rng.integers(-127, 128, size=(N, H, W, cin)).astype(np.int8)
@@ -121,7 +127,13 @@ def _int8_conv_inputs(N, H, W, cin, cout, ksize, stride, mode, device, seed=0):
                                  relu=True, out_dtype=torch.bfloat16),
           "qconv": dict(res=torch.from_numpy(rng.normal(0, 20, res_shape).astype(np.float32)
                                              ).to(torch.bfloat16),
-                        relu=True, out_dtype=torch.bfloat16)}[mode]
+                        relu=True, out_dtype=torch.bfloat16),
+          # the static int8 trunk: conv1/conv2 write int8 at the next conv's
+          # scale; conv3 writes the bf16 block output and its int8
+          "qconv_quant": dict(relu=True, out_dtype=torch.int8, qscale=0.3),
+          "qconv_dual": dict(res=torch.from_numpy(rng.normal(0, 20, res_shape).astype(np.float32)
+                                                  ).to(torch.bfloat16),
+                             relu=True, out_dtype=torch.bfloat16, qscale=0.3)}[mode]
     kw = {k: (v.to(device) if torch.is_tensor(v) else v) for k, v in kw.items()}
     return t, kw
 
@@ -154,7 +166,8 @@ def test_int8_conv_cuda_rejects_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["requant", "f32", "block_end", "block_end_bf16", "qconv"])
+@pytest.mark.parametrize("mode", ["requant", "f32", "block_end", "block_end_bf16", "qconv",
+                                  "qconv_quant", "qconv_dual"])
 @pytest.mark.parametrize("ksize,stride", [(1, 1), (1, 2), (3, 1), (3, 2)])
 @pytest.mark.parametrize("N,H,W,cin,cout", [(3, 9, 13, 96, 40), (4, 28, 28, 256, 512)])
 def test_int8_conv_kernel_matches_reference(cuda, N, H, W, cin, cout, ksize, stride, mode):
@@ -166,8 +179,38 @@ def test_int8_conv_kernel_matches_reference(cuda, N, H, W, cin, cout, ksize, str
     assert ic.launches == n + 1
     want = ic.int8_conv_reference(t["x"], t["w"], t["m"], t["b"], ksize, stride, **kw)
     torch.cuda.synchronize()
-    assert got.dtype == want.dtype and got.shape == want.shape
-    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+    pairs = zip(got, want) if mode == "qconv_dual" else [(got, want)]
+    for g, w in pairs:
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w), (g.float() - w.float()).abs().max().item()
+    if "qconv_" in mode:
+        q = want[1] if mode == "qconv_dual" else want
+        assert (q.abs() == 127).any() and (q == 0).any(), "the clip or relu is not exercised"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [0.3, 1 / 3, 0.0123, 2.0 ** -5 * 1.5, 7.77])
+def test_int8_conv_requant_every_bf16_value(cuda, s):
+    """The requant epilogue equals the plain version's IEEE division on every
+    finite bf16 value within ±130·s and on a few far beyond, one output
+    channel each: a 1×1 conv of one pixel whose accumulator is 1, so that
+    channel c's value is m[c]."""
+    v = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+    v = v.view(torch.bfloat16).float()
+    v = v[torch.isfinite(v) & (v.abs() <= 130 * s)]
+    v = torch.cat([v, torch.tensor([200 * s, -200 * s, 1e30, -1e30, 3e38])])
+    m = torch.cat([v, torch.zeros((-len(v)) % 8)]).to(cuda)
+    x = torch.zeros(1, 1, 1, 32, dtype=torch.int8, device=cuda)
+    x[..., 0] = 1
+    w = torch.zeros(len(m), 32, dtype=torch.int8, device=cuda)
+    w[:, 0] = 1
+    b = torch.zeros_like(m)
+    for out_dtype in (torch.int8, torch.bfloat16):
+        got = ic.int8_conv(x, w, m, b, 1, out_dtype=out_dtype, qscale=s)
+        want = ic.int8_conv_reference(x, w, m, b, 1, out_dtype=out_dtype, qscale=s)
+        torch.cuda.synchronize()
+        for g, wt in zip(*((got, want) if out_dtype == torch.bfloat16 else ((got,), (want,)))):
+            assert torch.equal(g, wt), (g.float() - wt.float()).abs().max().item()
 
 
 @pytest.mark.cuda
@@ -207,6 +250,10 @@ def test_int8_conv_kernel_rejects_bad_inputs(cuda):
         ic.int8_conv(x, w, m, b, 3, 3, **kw)
     with pytest.raises(ValueError, match="scale r"):
         ic.int8_conv(x, w, m, b, 3, res=torch.zeros_like(x))
+    with pytest.raises(ValueError, match="qscale"):
+        ic.int8_conv(x, w, m, b, 3, out_dtype=torch.float32, qscale=0.3)
+    with pytest.raises(ValueError, match="qscale"):
+        ic.int8_conv(x, w, m, b, 3, out_dtype=torch.int8, qscale=0.0)
     blk = _int8_block_operands(64, 32, 64, 2, True, cuda)
     with pytest.raises(ValueError, match="even"):
         ib.int8_block(torch.zeros(1, 7, 8, 64, dtype=torch.int8, device=cuda), blk)
