@@ -28,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _libs = {}       # source stem -> loaded ctypes.CDLL
+_functions = {}  # (source stem, C name) -> typed ctypes function
 build_log = {}   # source stem -> nvcc's stderr (ptxas registers / shared memory)
 
 
@@ -76,16 +77,22 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def function(lib: str, name: str, n_ptr: int, n_int: int, n_float: int = 0):
+def function(lib: str, name: str, n_ptr: int, n_int: int, n_float: int = 0,
+             stream: bool = True):
     """The C function ``name`` of ``csrc/<lib>.cu``, typed as ``n_ptr``
-    pointers, then ``n_int`` ints, then ``n_float`` floats, then the stream;
-    returns a CUDA error code."""
-    if lib not in _libs:
-        build_all()
-    fn = getattr(_libs[lib], name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_float] * n_float + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    pointers, then ``n_int`` ints, then ``n_float`` floats, then the stream
+    (unless ``stream`` is false); returns a CUDA error code. Typed once and
+    cached: the wrappers call this on every launch."""
+    key = (lib, name)
+    fn = _functions.get(key)
+    if fn is None:
+        if lib not in _libs:
+            build_all()
+        fn = _libs[lib][name]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] * n_float + ([ctypes.c_void_p] if stream else []))
+        fn.restype = ctypes.c_int
+        _functions[key] = fn
     return fn
 
 

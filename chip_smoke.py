@@ -6,7 +6,9 @@
 Phases, each of which exits non-zero on failure:
   1. build every kernel under airpose_tpu_torch/csrc/ with nvcc for sm_90a;
   2. skinning kernel vs its plain version at the main path's shapes
-     (B = 128 bodies, V = 10475, J = 55), with timings;
+     (B = 128 bodies, V = 10475, J = 55) and at the training batch B = 60,
+     with its registers and occupancy, and timings beside two library
+     yardsticks (lbs.py's einsum pair; cuBLAS's SGEMM of T's used rows);
   3. fused layer1 kernel vs its plain version at (128, 56, 56, 64) bf16,
      BN statistics perturbed from a seed, with timings;
   4. the bf16 perception chain at B = 64 frames (128 crops of 224²), full
@@ -94,8 +96,60 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
+def ptxas_lines(text, kernel):
+    """ptxas -v's lines for one kernel: its spills, registers and static
+    shared memory."""
+    lines, out = text.splitlines(), []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            for nxt in lines[i + 1:i + 6]:
+                out.append(nxt.strip())
+                if "registers" in nxt:
+                    break
+    return out
+
+
+def skinning_at(w, a, p):
+    """The skinning kernel against its plain version at one batch, then the
+    kernel, the plain version, both library yardsticks and the bound."""
+    from airpose_tpu_torch.bodymodel import cuda_lbs
+
+    (B, J), V = a.shape[:2], w.shape[0]
+    got = cuda_lbs.skinning(w, a, p)
+    want = cuda_lbs.skinning_reference(w, a, p)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    log(f"skinning B={B}: max_abs_err {err:.3e} (atol {SKIN_ATOL})")
+    check(err <= SKIN_ATOL, f"skinning kernel disagrees with its plain version at B={B}: {err}")
+
+    def einsum_pair():  # the library yardstick: lbs.py's two einsums
+        T = torch.einsum("vj,bjk->bvk", w, a.reshape(B, -1, 16)).reshape(B, -1, 4, 4)
+        return torch.einsum("bvij,bvj->bvi", T[..., :3, :3], p) + T[..., :3, 3]
+
+    # the floor of any library route: cuBLAS's f32 SGEMM of T's 12 used rows
+    # (W @ A12, all the FMAs and nothing else; TF32 is off package-wide)
+    a12 = a[:, :, :3, :].permute(1, 0, 2, 3).reshape(J, B * 12).contiguous()
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for the SGEMM yardstick")
+    ms = time_ms(lambda: cuda_lbs.skinning(w, a, p), iters=50, warmup=5)
+    plain_ms = time_ms(lambda: cuda_lbs.skinning_reference(w, a, p))
+    library_ms = time_ms(einsum_pair)
+    sgemm_ms = time_ms(lambda: torch.mm(w, a12), iters=50, warmup=5)
+    n_bytes = 4 * (w.numel() + a.numel() + p.numel() + got.numel())
+    flops = B * V * (J * 12 * 2 + 18)
+    bound_ms, bound_by = bound(n_bytes, flops, F32_FLOP_PER_S)
+    log(f"skinning B={B}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms (einsum pair), "
+        f"{sgemm_ms:.4f} ms (SGEMM W @ A12), bound {bound_ms:.4f} ms ({bound_by}), "
+        f"kernel at {bound_ms / ms:.1%} of its bound")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "sgemm_ms": sgemm_ms}
+
+
 def phase_skinning(dev):
+    """The main path's B = 128 bodies (two views of 64 frames), then the
+    training slice's B = 60, at V = 10475, J = 55."""
     from airpose_tpu_torch.bodymodel import cuda_lbs, synthetic_smplx_params
+    from airpose_tpu_torch.ops import _build
 
     B, V, J = 128, 10475, 55
     rng = np.random.default_rng(1)
@@ -105,31 +159,15 @@ def phase_skinning(dev):
     a = torch.from_numpy(rel).to(dev)
     p = torch.from_numpy(rng.normal(size=(B, V, 3)).astype(np.float32)).to(dev)
 
-    got = cuda_lbs.skinning(w, a, p)
-    want = cuda_lbs.skinning_reference(w, a, p)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    log(f"skinning: max_abs_err {err:.3e} (atol {SKIN_ATOL})")
-    check(err <= SKIN_ATOL, f"skinning kernel disagrees with its plain version: {err}")
-
-    ms = time_ms(lambda: cuda_lbs.skinning(w, a, p))
-    plain_ms = time_ms(lambda: cuda_lbs.skinning_reference(w, a, p))
-
-    def einsum_pair():  # the library yardstick: lbs.py's two einsums
-        T = torch.einsum("vj,bjk->bvk", w, a.reshape(B, -1, 16)).reshape(B, -1, 4, 4)
-        return torch.einsum("bvij,bvj->bvi", T[..., :3, :3], p) + T[..., :3, 3]
-
-    library_ms = time_ms(einsum_pair)
-    n_bytes = 4 * (w.numel() + a.numel() + p.numel() + got.numel())
-    flops = B * V * (J * 12 * 2 + 18)
-    bound_ms, bound_by = bound(n_bytes, flops, F32_FLOP_PER_S)
-    log(f"skinning: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    res = cuda_lbs.kernel_resources(J)
+    ptxas = ptxas_lines(_build.build_log.get("lbs_skinning", ""), "skinning_kernel")
+    log(f"skinning kernel: {res}; ptxas: {' | '.join(ptxas) or 'not built in this process'}")
+    check(res["blocks_per_sm"] >= 1, f"a skinning block does not fit on an SM: {res}")
+    row = skinning_at(w, a, p)
+    row["at_b60"] = skinning_at(w, a[:60], p[:60])
     return {"name": "lbs_skinning", "route": "cuda",
             "source": "airpose_tpu_torch/csrc/lbs_skinning.cu",
-            "replaces": "airpose_tpu/bodymodel/pallas_lbs.py:75",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "replaces": "airpose_tpu/bodymodel/pallas_lbs.py:75"} | row
 
 
 def phase_stage1(dev):

@@ -53,13 +53,42 @@ def test_skinning_cuda_rejects_cpu_tensors():
         cuda_lbs.skinning_cuda(*_skin_inputs(8, 1, 2, "cpu"))
 
 
+@pytest.mark.parametrize("J", [0, 257])
+def test_skinning_cuda_rejects_joint_counts(J):
+    """The joint count is checked before anything touches a device."""
+    w, a, p = (torch.zeros(s) for s in ((8, J), (1, J, 4, 4), (1, 8, 3)))
+    with pytest.raises(ValueError, match="joints"):
+        cuda_lbs.skinning_cuda(w, a, p)
+
+
+@pytest.mark.parametrize("arg", [0, 1, 2])
+def test_skinning_cuda_rejects_grad(arg):
+    """No backward yet: an input that requires grad raises, whatever its device."""
+    inputs = list(_skin_inputs(8, 1, 2, "cpu"))
+    inputs[arg].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="backward"):
+        cuda_lbs.skinning_cuda(*inputs)
+
+
 def test_fused_stage1_cuda_rejects_cpu_tensors(stage_ops):
     with pytest.raises(ValueError, match="CUDA"):
         fb.fused_stage1_cuda(torch.zeros(1, 4, 4, 64, dtype=torch.bfloat16), stage_ops)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("V,B,J", [(10475, 128, 55), (1000, 9, 55), (77, 3, 24)])
+@pytest.mark.parametrize("V,B,J", [
+    (10475, 128, 55),   # the main path
+    (1000, 9, 55),
+    (77, 3, 24),
+    (500, 5, 256),      # the wrapper's limit: 8 chunks of 32 joints
+    (2000, 7, 24),      # one chunk of 64 joints, ragged
+    (2000, 7, 33),
+    (2000, 7, 64),      # the largest one-chunk J
+    (2000, 7, 65),      # a 1-joint first chunk, then two of 32
+    (3000, 40, 100),    # 4 chunks a tile; a block's run crosses vertex tiles
+    (10475, 60, 55),    # the training batch
+    (10475, 17, 55),    # V and B multiples of neither the tile nor 4
+])
 def test_skinning_kernel_matches_reference(cuda, V, B, J):
     w, a, p = _skin_inputs(V, B, J, cuda)
     n = cuda_lbs.launches
@@ -70,12 +99,49 @@ def test_skinning_kernel_matches_reference(cuda, V, B, J):
 
 
 @pytest.mark.cuda
+def test_skinning_kernel_takes_unaligned_views(cuda):
+    """W is read by 4-byte copies and p through the aligned span around it,
+    so views at any float offset work; A is read by 16-byte copies, so the
+    wrapper refuses a misaligned one."""
+    V, B, J = 1001, 5, 55
+    w, a, p = _skin_inputs(V, B, J, cuda)
+    big_p = torch.empty(B * V * 3 + 1, device=cuda)
+    big_w = torch.empty(V * J + 3, device=cuda)
+    p1 = big_p[1:].view(B, V, 3).copy_(p)
+    w1 = big_w[3:].view(V, J).copy_(w)
+    assert p1.data_ptr() % 16 and w1.data_ptr() % 16
+    torch.testing.assert_close(cuda_lbs.skinning(w1, a, p1),
+                               cuda_lbs.skinning_reference(w, a, p), atol=2e-5, rtol=0)
+    big_a = torch.empty(a.numel() + 1, device=cuda)
+    a1 = big_a[1:].view(a.shape).copy_(a)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_lbs.skinning(w, a1, p)
+
+
+@pytest.mark.cuda
 def test_skinning_kernel_rejects_bad_inputs(cuda):
     w, a, p = _skin_inputs(100, 2, 55, cuda)
     with pytest.raises(ValueError, match="float32"):
         cuda_lbs.skinning(w.double(), a, p)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_lbs.skinning(w, a, p.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_lbs.skinning(w.cpu(), a, p)
+    with pytest.raises(ValueError, match="joints"):
+        cuda_lbs.skinning(torch.zeros(100, 257, device=cuda),
+                          torch.zeros(2, 257, 4, 4, device=cuda), p)
+    with pytest.raises(RuntimeError, match="backward"):
+        cuda_lbs.skinning(w, a.requires_grad_(True), p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J", [55, 64, 65, 256])
+def test_skinning_kernel_resources(cuda, J):
+    """One resident block an SM, without spilling past the register file,
+    on both sides of the 64-joint switch of the chunk size."""
+    res = cuda_lbs.kernel_resources(J)
+    assert res["blocks_per_sm"] == 1 and res["registers"] <= 255, res
+    assert res["smem_bytes"] <= 232448, res
 
 
 @pytest.mark.cuda

@@ -38,9 +38,14 @@ def test_rotmat_to_rot6d_inverts(rng):
                                R.numpy(), atol=1e-6)
 
 
-@pytest.mark.parametrize("V,B", [(333, 2), (1024, 3)])
-def test_skinning_reference_matches_pallas(rng, V, B):
-    J = 55
+@pytest.mark.parametrize("V,B,J", [
+    pytest.param(333, 2, 55, id="333-2"),
+    pytest.param(1024, 3, 55, id="1024-3"),
+    pytest.param(300, 2, 24, id="J24"),
+    pytest.param(256, 2, 128, id="J128"),      # the TPU kernel's joint padding
+    pytest.param(1023, 2, 55, id="V1023"),     # V not a multiple of 4
+])
+def test_skinning_reference_matches_pallas(rng, V, B, J):
     w = rng.random((V, J)).astype(np.float32)
     w /= w.sum(1, keepdims=True)
     rel = rng.normal(size=(B, J, 4, 4)).astype(np.float32) * 0.3
