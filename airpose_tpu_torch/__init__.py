@@ -7,14 +7,20 @@ names here mirror it, public functions keep its layouts (images
 package against its JAX counterpart. This package imports neither JAX nor
 anything of ``airpose_tpu``.
 
-Layer map of the ported slice (the bf16 two-view perception chain):
+Layer map of the ported slices (the two-view perception chain with its bf16,
+int8 and int8-block trunks, and the synthetic two-view training step):
   perception.py  the chain of the root bench.py: trunk → IEF → 6D → SMPL-X → projection
-  entry.py, bench.py, profile_chain.py   entry point, throughput, device-time split
-  models/       ResNet-50 trunk, IEF regressor, AirPoseTwoView
-  ops/           fused layer1 stage (CUDA kernel) + the nvcc/ctypes builder
-  bodymodel/     SMPL-X forward, LBS, skinning (CUDA kernel)
+  entry.py, bench.py, profile_*.py   entry point, throughput, device-time splits
+  train/         the training step: loop.py (make_twoview_step_fns), state.py
+                 (TrainState, optax-equal AMSGrad), losses.py; flax → torch weight carry
+  data/          synthetic two-view dataset, joint tables
+  config.py      TrainConfig and the loss weights
+  models/        ResNet-50 trunk (eval and train-mode BatchNorm), IEF regressor,
+                 AirPoseTwoView
+  ops/           fused layer1 stage, int8 conv and blocks (CUDA kernels), QAT,
+                 the nvcc/ctypes builder
+  bodymodel/     SMPL-X forward, LBS, skinning (CUDA kernel, with its backward)
   geometry/      rotation conversions
-  train/         cam_frame_and_project, flax → torch weight carry
   csrc/          the CUDA C++ kernel sources (sm_90a)
 
 Entry points run on the GPU: ``device=None`` means ``"cuda"``, and without a

@@ -7,6 +7,13 @@ returns T[:3, :3]·p + T[:3, 3] without writing the (B, V, 16) T to memory.
 On an H100 the work is bound by f32 FMAs on the CUDA cores; the source
 explains the tiling. ``skinning`` takes the plain version only for CPU
 tensors; on CUDA tensors it launches the kernel or raises.
+
+The gradient: ``skinning_cuda`` is a ``torch.autograd.Function`` whose
+forward is the kernel and whose backward is ``skinning_backward``, plain
+torch ops (two cuBLAS products and an elementwise pass; the JAX package has
+no backward kernel either, XLA differentiates its einsum pair). Only the
+transforms A and the posed vertices p take a gradient; the skinning weights
+W are model constants and asking for their gradient raises.
 """
 
 import ctypes
@@ -39,18 +46,66 @@ def skinning(lbs_weights: torch.Tensor, rel_tf: torch.Tensor,
     return skinning_cuda(lbs_weights, rel_tf, v_posed)
 
 
+def skinning_backward(lbs_weights: torch.Tensor, rel_tf: torch.Tensor,
+                      v_posed: torch.Tensor, grad: torch.Tensor):
+    """Gradients (d rel_tf (B, J, 4, 4), d v_posed (B, V, 3)) of the skinned
+    vertices for the output gradient ``grad`` (B, V, 3), from W, A and p
+    alone (T = Σ_j W[v, j]·A[b, j] is recomputed, never stored):
+
+      dp[b, v]           = T[b, v, :3, :3]ᵀ · g[b, v]
+      dA[b, j, :3, :]    = Σ_v W[v, j] · g[b, v] ⊗ [p[b, v]; 1]   (row 3 is 0)
+
+    Both sums over joints and vertices are (V, J) × (J, B·k) products;
+    the intermediates stay vertex-major, (V, B, ·), so that neither product
+    needs a transposed copy."""
+    B, V = v_posed.shape[:2]
+    J = lbs_weights.shape[1]
+    g = grad.transpose(0, 1)  # (V, B, 3) views
+    p = v_posed.transpose(0, 1)
+    rot = rel_tf[:, :, :3, :3].permute(1, 0, 2, 3).reshape(J, B * 9)
+    T = torch.matmul(lbs_weights, rot).view(V, B, 3, 3)
+    d_p = (T * g[..., None]).sum(dim=2).transpose(0, 1)
+    outer = torch.empty(V, B, 3, 4, dtype=grad.dtype, device=grad.device)
+    torch.mul(g[..., None], p[..., None, :], out=outer[..., :3])
+    outer[..., 3] = g
+    d_a3 = torch.matmul(lbs_weights.t(), outer.view(V, B * 12)).view(J, B, 3, 4)
+    d_a = rel_tf.new_zeros(B, J, 4, 4)
+    d_a[:, :, :3] = d_a3.transpose(0, 1)
+    return d_a, d_p
+
+
+class _Skinning(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lbs_weights, rel_tf, v_posed):
+        if ctx.needs_input_grad[0]:
+            raise RuntimeError("skinning: lbs_weights takes no gradient "
+                               "(the skinning weights are model constants)")
+        out = _launch(lbs_weights, rel_tf, v_posed)
+        ctx.save_for_backward(lbs_weights, rel_tf, v_posed)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        d_a, d_p = skinning_backward(*ctx.saved_tensors, grad)
+        return (None, d_a if ctx.needs_input_grad[1] else None,
+                d_p if ctx.needs_input_grad[2] else None)
+
+
 def skinning_cuda(lbs_weights: torch.Tensor, rel_tf: torch.Tensor,
                   v_posed: torch.Tensor) -> torch.Tensor:
+    """The kernel, differentiable in ``rel_tf`` and ``v_posed``; raises on
+    anything the kernel does not take."""
+    return _Skinning.apply(lbs_weights, rel_tf, v_posed)
+
+
+def _launch(lbs_weights: torch.Tensor, rel_tf: torch.Tensor,
+            v_posed: torch.Tensor) -> torch.Tensor:
     """Launch the kernel; raises on anything it does not take."""
     global launches
     V, J = lbs_weights.shape
     B = rel_tf.shape[0]
     if not 0 < J <= MAX_JOINTS:
         raise ValueError(f"skinning_cuda: {J} joints, the kernel takes 1..{MAX_JOINTS}")
-    if torch.is_grad_enabled() and (lbs_weights.requires_grad
-                                    or rel_tf.requires_grad
-                                    or v_posed.requires_grad):
-        raise RuntimeError("skinning_cuda has no backward yet")
     for name, t, shape in (("lbs_weights", lbs_weights, (V, J)),
                            ("rel_tf", rel_tf, (B, J, 4, 4)),
                            ("v_posed", v_posed, (B, V, 3))):

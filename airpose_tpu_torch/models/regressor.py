@@ -4,14 +4,12 @@ dropout → fc2(1024) → dropout → one residual delta per head, all in f32.""
 
 import math
 import os
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
-from torch.nn import functional as F
 
-DROPOUT = 0.5  # after fc1 and fc2, active in train mode only
 MEAN_PARAMS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data",
                            "assets", "smpl_mean_params.npz")
 
@@ -22,13 +20,25 @@ def _lecun_normal_(w: torch.Tensor, generator) -> None:
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
+def dropout(h: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout`` in train mode: keep with probability 1 − rate and
+    scale the kept values by 1 / (1 − rate), the mask drawn from
+    ``generator`` (on ``h``'s device)."""
+    keep = 1.0 - rate
+    mask = torch.empty_like(h).bernoulli_(keep, generator=generator)
+    return h * mask / keep
+
+
 class RegressorCore(nn.Module):
-    """One IEF step's MLP. Returns one delta per head."""
+    """One IEF step's MLP. Returns one delta per head. ``dropout_rate``
+    (0.5, after fc1 and fc2) acts in train mode only, with masks from the
+    generator the caller passes."""
 
     def __init__(self, in_dim: int, head_dims: Sequence[int],
                  head_names: Sequence[str], generator=None):
         super().__init__()
         self.head_names = tuple(head_names)
+        self.dropout_rate = 0.5
         self.fc1 = nn.Linear(in_dim, 1024)
         self.fc2 = nn.Linear(1024, 1024)
         for fc in (self.fc1, self.fc2):
@@ -40,9 +50,17 @@ class RegressorCore(nn.Module):
             nn.init.zeros_(head.bias)
             self.add_module(name, head)
 
-    def forward(self, xc: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        h = F.dropout(self.fc1(xc), DROPOUT, self.training)
-        h = F.dropout(self.fc2(h), DROPOUT, self.training)
+    def forward(self, xc: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
+        drop = train and self.dropout_rate > 0
+        if drop and generator is None:
+            raise ValueError("RegressorCore: train-mode dropout needs a torch.Generator")
+        h = self.fc1(xc)
+        if drop:
+            h = dropout(h, self.dropout_rate, generator)
+        h = self.fc2(h)
+        if drop:
+            h = dropout(h, self.dropout_rate, generator)
         return tuple(getattr(self, name)(h) for name in self.head_names)
 
 

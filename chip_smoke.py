@@ -29,7 +29,18 @@ Phases, each of which exits non-zero on failure:
      once (the stem's output), outputs must be finite, each trunk's
      features must equal those of its plain version and each chain agree
      with its plain chain, the features must correlate > 0.9 with the bf16
-     trunk's; then two_view_fps of each.
+     trunk's; then two_view_fps of each;
+  8. the training step of record (make_twoview_step_fns, TrainConfig()
+     defaults: AMSGrad at lr 5e-5, 3 IEF steps, dropout) on the bf16
+     AirPoseTwoView at B = 30 frames of 224² from make_synthetic_dataset,
+     full synthetic SMPL-X: the skinning Function's backward against
+     autograd through the plain version at B = 60 bodies, with its times
+     and bound; one step's loss and gradients with the skinning kernel
+     against the same step with the plain version (same dropout masks);
+     25 steps on one batch, each launching skinning exactly once, with the
+     loss finite and falling; one eval_step; then ms per step, frames/s,
+     the forward / backward / optimizer split from CUDA events and the
+     device's idle share from torch.profiler.
 Prints the kernels as one JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA device is available.
@@ -67,17 +78,57 @@ INT8_CHAIN_REL_L2 = 1e-5
 # (tests/test_int8_bottleneck.py): ≤ 1 step on < 0.5% of elements.
 BLOCK_MAX_STEP, BLOCK_FRAC = 1.0, 5e-3
 FEATURE_CORR = 0.9          # int8 vs bf16 trunk features, tests/test_int8_trunk.py
+# Skinning's backward against autograd through the plain version: both are
+# f32 sums over V = 10475 (dA) or J = 55 (dp) in other orders; bound on the
+# max |difference| over max |reference| of each gradient.
+SKIN_GRAD_REL = 1e-5
+# One train step with the skinning kernel against the same step with the
+# plain version, the same weights, batch and dropout masks. The loss differs
+# only by skinning's f32 summation order; the f32 regressor gradients
+# inherit that; the bf16 trunk's backward rounds those differences to bf16
+# in each of its 53 convolutions, which amplifies them as in CHAIN_REL_L2.
+# On the H100 the loss came out equal and the regressor gradients 1.3e-9
+# apart (rel-L2), so their bounds are 1e-6 (from 1e-5 and 1e-4): still ~10
+# f32 ulps of the loss and ~1e3 times the measured gradient difference. The
+# trunk's measured 2.1e-2 keeps 5e-2.
+TRAIN_LOSS_REL, TRAIN_REG_GRAD_REL_L2, TRAIN_TRUNK_GRAD_REL_L2 = 1e-6, 1e-6, 5e-2
+TRAIN_STEPS = 25
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def time_ms(fn, iters=20, warmup=3):
+def wall_ms(fn, iters=20, warmup=3):
+    """Time per call between two CUDA events: the device's time, waits for
+    the host included."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+# ~0.1 s of spinning at the H100's 1.98 GHz: longer than the host takes to
+# queue any timed run of kernels below
+SLEEP_CYCLES = 200_000_000
+
+
+def time_ms(fn, iters=20, warmup=3):
+    """Device time per call: the timed calls are queued behind a spin kernel,
+    so that the device runs them back to back whatever the host's speed (a
+    kernel shorter than its host-side launch path would otherwise time the
+    host)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -131,18 +182,21 @@ def skinning_at(w, a, p):
     a12 = a[:, :, :3, :].permute(1, 0, 2, 3).reshape(J, B * 12).contiguous()
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for the SGEMM yardstick")
     ms = time_ms(lambda: cuda_lbs.skinning(w, a, p), iters=50, warmup=5)
+    paced_ms = wall_ms(lambda: cuda_lbs.skinning(w, a, p), iters=50, warmup=5)
     plain_ms = time_ms(lambda: cuda_lbs.skinning_reference(w, a, p))
     library_ms = time_ms(einsum_pair)
     sgemm_ms = time_ms(lambda: torch.mm(w, a12), iters=50, warmup=5)
     n_bytes = 4 * (w.numel() + a.numel() + p.numel() + got.numel())
     flops = B * V * (J * 12 * 2 + 18)
     bound_ms, bound_by = bound(n_bytes, flops, F32_FLOP_PER_S)
-    log(f"skinning B={B}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+    log(f"skinning B={B}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; "
+        f"{paced_ms:.4f} ms a call when the host paces the launches), "
         f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms (einsum pair), "
         f"{sgemm_ms:.4f} ms (SGEMM W @ A12), bound {bound_ms:.4f} ms ({bound_by}), "
         f"kernel at {bound_ms / ms:.1%} of its bound")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, "sgemm_ms": sgemm_ms}
+            "bound_by": bound_by, "library_ms": library_ms, "sgemm_ms": sgemm_ms,
+            "host_paced_ms": paced_ms}
 
 
 def phase_skinning(dev):
@@ -510,6 +564,171 @@ def phase_int8_chains(dev, model, smplx_params, chains, inputs, bf16_features):
     return launches, fps
 
 
+def skinning_backward_at(w, a, p):
+    """The skinning Function's gradients against autograd through the plain
+    version at one batch, then the backward's times and bound."""
+    from airpose_tpu_torch.bodymodel import cuda_lbs
+
+    (B, J), V = a.shape[:2], w.shape[0]
+    a, p = a.clone().requires_grad_(True), p.clone().requires_grad_(True)
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=tuple(p.shape)).astype(np.float32)
+                         ).to(p.device)
+    got = torch.autograd.grad(cuda_lbs.skinning(w, a, p), (a, p), g)
+    ref_out = cuda_lbs.skinning_reference(w, a, p)
+    want = torch.autograd.grad(ref_out, (a, p), g, retain_graph=True)
+    torch.cuda.synchronize()
+    rel = {k: ((x - y).abs().max() / y.abs().max()).item()
+           for k, x, y in zip(("d_rel_tf", "d_v_posed"), got, want)}
+    log(f"skinning backward B={B}: max relative error {rel} (bound {SKIN_GRAD_REL})")
+    check(all(r <= SKIN_GRAD_REL for r in rel.values()),
+          f"skinning backward disagrees with autograd through the plain version: {rel}")
+    ad, pd = a.detach(), p.detach()
+    ms = time_ms(lambda: cuda_lbs.skinning_backward(w, ad, pd, g), iters=50, warmup=5)
+    paced_ms = wall_ms(lambda: cuda_lbs.skinning_backward(w, ad, pd, g), iters=50, warmup=5)
+    plain_ms = time_ms(lambda: torch.autograd.grad(ref_out, (a, p), g, retain_graph=True))
+    n_bytes = 4 * (w.numel() + 2 * a.numel() + 2 * p.numel() + g.numel())
+    flops = 2 * V * J * B * 9 + 2 * B * V * 9 + B * V * 12 + 2 * J * V * B * 12
+    bound_ms, bound_by = bound(n_bytes, flops, F32_FLOP_PER_S)
+    log(f"skinning backward B={B}: {ms:.4f} ms (torch ops: two SGEMMs and elementwise "
+        f"passes; {paced_ms:.4f} ms a call when the host paces the launches), autograd of "
+        f"the einsum pair {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), at {bound_ms / ms:.1%} of its bound")
+    return {"max_rel_err": max(rel.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "host_paced_ms": paced_ms}
+
+
+def phase_train(dev):
+    """The two-view training step of record at B = 30 frames of 224²."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from airpose_tpu_torch.bodymodel import cuda_lbs, synthetic_smplx_params
+    from airpose_tpu_torch.config import TrainConfig
+    from airpose_tpu_torch.data import batch_slice, make_synthetic_dataset
+    from airpose_tpu_torch.models import AirPoseTwoView
+    from airpose_tpu_torch.train import (create_train_state, make_twoview_step_fns,
+                                         twoview_loss)
+
+    cfg = TrainConfig()
+    B = cfg.batch_size
+    smplx_params = synthetic_smplx_params().to(dev)
+    batch = batch_slice(make_synthetic_dataset(smplx_params, B, seed=0), 0, B, dev)
+    check(tuple(batch["images"].shape) == (B, 2, 224, 224, 3),
+          f"synthetic batch images {tuple(batch['images'].shape)}")
+
+    # skinning's backward at the step's 60 bodies, on the step's own inputs' scale
+    rng = np.random.default_rng(3)
+    rel = rng.normal(size=(2 * B, 55, 4, 4)).astype(np.float32) * 0.3
+    rel[:, :, 3] = [0, 0, 0, 1]
+    backward = skinning_backward_at(
+        smplx_params.lbs_weights, torch.from_numpy(rel).to(dev),
+        torch.from_numpy(rng.normal(size=(2 * B, 10475, 3)).astype(np.float32)).to(dev))
+
+    model = AirPoseTwoView(dtype=torch.bfloat16, seed=0).to(dev)
+    in_trans = torch.tensor([0.0, 0.0, 10.0 * cfg.trans_scale], device=dev).expand(B, 2, 3)
+    params = dict(model.named_parameters())
+
+    def loss_and_grads(use_kernels):
+        """The train step's forward and backward, as loop.py composes them."""
+        gen = torch.Generator(device=dev).manual_seed(11)
+        out = model(batch["images"], batch["bb"], in_trans, iters=cfg.reg_iters, train=True,
+                    generator=gen)
+        loss, _ = twoview_loss(out.pose, out.betas, batch, smplx_params, cfg.loss,
+                               cfg.trans_scale, use_kernels=use_kernels)
+        return loss, dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+    loss_k, grads_k = loss_and_grads(True)
+    loss_p, grads_p = loss_and_grads(False)
+
+    def rel_l2(prefix):
+        num = sum((grads_k[n] - grads_p[n]).float().pow(2).sum() for n in params
+                  if n.startswith(prefix))
+        den = sum(grads_p[n].float().pow(2).sum() for n in params if n.startswith(prefix))
+        return (num / den).sqrt().item()
+
+    agree = {"loss_rel": abs(loss_k.item() - loss_p.item()) / abs(loss_p.item()),
+             "regressor_grad_rel_l2": rel_l2("core."), "trunk_grad_rel_l2": rel_l2("trunk.")}
+    log(f"train step, skinning kernel vs plain: {agree} (bounds {TRAIN_LOSS_REL}, "
+        f"{TRAIN_REG_GRAD_REL_L2}, {TRAIN_TRUNK_GRAD_REL_L2})")
+    check(agree["loss_rel"] <= TRAIN_LOSS_REL
+          and agree["regressor_grad_rel_l2"] <= TRAIN_REG_GRAD_REL_L2
+          and agree["trunk_grad_rel_l2"] <= TRAIN_TRUNK_GRAD_REL_L2,
+          f"the kernel's train step disagrees with the plain step: {agree}")
+    del grads_k, grads_p
+
+    state, tx = create_train_state(model, cfg.lr)
+    train_step, eval_step = make_twoview_step_fns(model, smplx_params, cfg, tx)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    losses, launches = [], set()
+    for i in range(TRAIN_STEPS):
+        cuda_lbs.launches = 0
+        state, metrics = train_step(state, batch, gen)
+        losses.append(metrics["loss"].item())
+        launches.add(cuda_lbs.launches)
+        check(cuda_lbs.launches == 1,
+              f"train step {i} launched skinning {cuda_lbs.launches} times, expected 1")
+    log(f"train: {TRAIN_STEPS} steps at B={B}, losses {[round(x, 1) for x in losses]}")
+    check(bool(np.isfinite(losses).all()), "non-finite training loss")
+    check(np.mean(losses[-5:]) < np.mean(losses[:3]),
+          f"training loss did not fall: first 3 {losses[:3]}, last 5 {losses[-5:]}")
+    metrics, preds = eval_step(state, batch)
+    check(tuple(preds["pred_rotmat"].shape) == (B, 2, 22, 3, 3)
+          and bool(torch.isfinite(preds["pred_rotmat"]).all()),
+          f"eval_step rotmats {tuple(preds['pred_rotmat'].shape)}")
+    log(f"eval_step: loss {metrics['loss'].item():.1f}, pred_rotmat "
+        f"{tuple(preds['pred_rotmat'].shape)}")
+
+    # the step's time, then its parts as separate CUDA-event spans, as the
+    # step composes them (the state's tensors are the model's own)
+    step_ms = wall_ms(lambda: train_step(state, batch, gen), iters=10, warmup=2)
+    names = list(state.opt_state["mu"])
+    n_spans, spans = 5, {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    for _ in range(n_spans):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        out = model(batch["images"], batch["bb"], in_trans, iters=cfg.reg_iters, train=True,
+                    generator=gen)
+        loss, _ = twoview_loss(out.pose, out.betas, batch, smplx_params, cfg.loss,
+                               cfg.trans_scale)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, [state.params[n] for n in names])
+        ev[2].record()
+        tx.update(dict(zip(names, grads)), state.opt_state, state.params)
+        ev[3].record()
+        ev[3].synchronize()
+        for k, i in zip(spans, range(3)):
+            spans[k] += ev[i].elapsed_time(ev[i + 1]) / n_spans
+    # busy: the device time of every kernel and copy of 3 steps under the
+    # profiler (the record_function spans' device-side ranges are not work);
+    # idle share = 1 − busy / wall, wall from the unprofiled steps, as
+    # profile_chain does (the profiler slows the host)
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_ms = wall_ms(lambda: train_step(state, batch, gen), iters=n_prof, warmup=0)
+    from torch.autograd import DeviceType
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)
+                     and e.name not in ("forward", "backward", "optimizer")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device_events) / 1e3 / n_prof
+    fps = B / (step_ms / 1e3)
+    log(f"train step at B={B} frames (2·{B} crops of 224²): {step_ms:.3f} ms, {fps:.1f} "
+        f"frames/s; spans (CUDA events) {{{', '.join(f'{k}: {v:.3f}' for k, v in spans.items())}}}"
+        f" ms; device busy {busy_ms:.3f} ms a step in {len(device_events) / n_prof:.0f} "
+        f"kernels and copies, idle share {1 - busy_ms / step_ms:.3f} (under the profiler: wall "
+        f"{prof_ms:.3f} ms, idle share {1 - busy_ms / prof_ms:.3f})")
+    by_name = {}
+    for e in device_events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n_prof
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log("train step, top device time a step: " + "; ".join(f"{ms:.3f} ms {n[:90]}"
+                                                            for n, ms in top))
+    (backward["train_launches_per_step"],) = launches
+    return backward, {"step_ms": step_ms, "frames_per_s": fps, "spans_ms": spans,
+                      "busy_ms": busy_ms, "idle_share": 1 - busy_ms / step_ms,
+                      "profiled_step_ms": prof_ms,
+                      "device_events_per_step": len(device_events) / n_prof,
+                      "losses": losses, **agree}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -545,6 +764,10 @@ def main():
         inputs, chain_ops(model, "bf16"))
     log(f"two_view_fps: bf16 {fps:.1f}, int8 {int8_fps['int8']:.1f}, "
         f"int8_block {int8_fps['int8_block']:.1f}")
+    del model, smplx_params, int8_features, qparams, blocks, block_features, inputs, crops
+    torch.cuda.empty_cache()
+    kernels[0]["backward"], train = phase_train(dev)
+    log(json.dumps({"train_step": train}))
     # launches: kernel launches in the main path's run of the chain that uses
     # each kernel (int8_block: its 42 conv launches, beside its 13 block calls)
     launches["int8_conv"] = int8_launches["int8"]["int8_conv"]
@@ -556,6 +779,11 @@ def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=30).stdout.strip()
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,temperature.gpu,"
+         "power.draw", "--format=csv"],
+        capture_output=True, text=True, check=True, timeout=30).stdout.strip()
+    log(f"card after the run: {' / '.join(clocks.splitlines())}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi.splitlines()[0])

@@ -12,9 +12,12 @@ import torch
 
 import airpose_tpu_torch
 from airpose_tpu_torch import resolve_device
+from airpose_tpu_torch.config import TrainConfig
+from airpose_tpu_torch.data import batch_slice
 from airpose_tpu_torch.entry import entry
 from airpose_tpu_torch.ops import _build
 from airpose_tpu_torch.perception import bench_inputs, build_perception
+from airpose_tpu_torch.train import make_twoview_step_fns
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "airpose_tpu_torch"
@@ -60,7 +63,8 @@ def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     for fn in (resolve_device, build_perception, entry, lambda: bench_inputs(2),
-               lambda: resolve_device("cuda")):
+               lambda: resolve_device("cuda"), lambda: batch_slice({}, 0, 1),
+               lambda: make_twoview_step_fns(None, None, TrainConfig(), None)):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn()
     assert resolve_device("cpu") == torch.device("cpu")

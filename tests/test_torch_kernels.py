@@ -63,11 +63,17 @@ def test_skinning_cuda_rejects_joint_counts(J):
 
 @pytest.mark.parametrize("arg", [0, 1, 2])
 def test_skinning_cuda_rejects_grad(arg):
-    """No backward yet: an input that requires grad raises, whatever its device."""
+    """The skinning weights take no gradient: asking for one raises before
+    anything touches a device. The transforms and the posed vertices do take
+    one, so on CPU tensors they meet the device check like any input."""
     inputs = list(_skin_inputs(8, 1, 2, "cpu"))
     inputs[arg].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="backward"):
-        cuda_lbs.skinning_cuda(*inputs)
+    if arg == 0:
+        with pytest.raises(RuntimeError, match="lbs_weights takes no gradient"):
+            cuda_lbs.skinning_cuda(*inputs)
+    else:
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_lbs.skinning_cuda(*inputs)
 
 
 def test_fused_stage1_cuda_rejects_cpu_tensors(stage_ops):
@@ -96,6 +102,28 @@ def test_skinning_kernel_matches_reference(cuda, V, B, J):
     assert cuda_lbs.launches == n + 1
     torch.testing.assert_close(got, cuda_lbs.skinning_reference(w, a, p),
                                atol=2e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,B,J", [
+    (10475, 60, 55),    # the training step's bodies: 30 frames × 2 views
+    (1000, 9, 24),
+])
+def test_skinning_kernel_gradient(cuda, V, B, J):
+    """The Function's gradients (kernel forward, torch-ops backward) against
+    autograd through the plain version: f32 sums in other orders, bound on
+    max |difference| / max |reference| of each gradient."""
+    w, a, p = _skin_inputs(V, B, J, cuda)
+    g = torch.from_numpy(np.random.default_rng(1).normal(size=(B, V, 3)).astype(np.float32)
+                         ).to(cuda)
+    a, p = a.requires_grad_(True), p.requires_grad_(True)
+    n = cuda_lbs.launches
+    got = torch.autograd.grad(cuda_lbs.skinning(w, a, p), (a, p), g)
+    assert cuda_lbs.launches == n + 1
+    want = torch.autograd.grad(cuda_lbs.skinning_reference(w, a, p), (a, p), g)
+    for x, y in zip(got, want):
+        assert ((x - y).abs().max() / y.abs().max()).item() <= 1e-5
+    assert torch.equal(got[0][:, :, 3], torch.zeros_like(got[0][:, :, 3]))
 
 
 @pytest.mark.cuda
@@ -130,8 +158,8 @@ def test_skinning_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="joints"):
         cuda_lbs.skinning(torch.zeros(100, 257, device=cuda),
                           torch.zeros(2, 257, 4, 4, device=cuda), p)
-    with pytest.raises(RuntimeError, match="backward"):
-        cuda_lbs.skinning(w, a.requires_grad_(True), p)
+    with pytest.raises(RuntimeError, match="lbs_weights takes no gradient"):
+        cuda_lbs.skinning(w.clone().requires_grad_(True), a, p)
 
 
 @pytest.mark.cuda

@@ -58,6 +58,30 @@ def test_skinning_reference_matches_pallas(rng, V, B, J):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
 
+@pytest.mark.parametrize("V,B,J", [
+    pytest.param(333, 2, 55, id="333-2"),
+    pytest.param(1023, 5, 24, id="J24"),
+    pytest.param(10475, 4, 55, id="smplx"),
+])
+def test_skinning_backward_matches_autograd(rng, V, B, J):
+    """The skinning Function's backward (torch ops, run here on the CPU)
+    against autograd through the plain einsum pair: f32 sums in other
+    orders, within 1e-5 of each gradient's largest entry."""
+    w = rng.random((V, J)).astype(np.float32)
+    w /= w.sum(1, keepdims=True)
+    rel = rng.normal(size=(B, J, 4, 4)).astype(np.float32) * 0.3
+    rel[:, :, 3] = [0, 0, 0, 1]
+    a, p = _t(rel).requires_grad_(True), _t(rng.normal(size=(B, V, 3)).astype(np.float32))
+    p.requires_grad_(True)
+    g = _t(rng.normal(size=(B, V, 3)).astype(np.float32))
+    want = torch.autograd.grad(cuda_lbs.skinning_reference(_t(w), a, p), (a, p), g)
+    got = cuda_lbs.skinning_backward(_t(w), a.detach(), p.detach(), g)
+    assert got[0].shape == (B, J, 4, 4) and got[1].shape == (B, V, 3)
+    assert torch.equal(got[0][:, :, 3], torch.zeros(B, J, 4))
+    for x, y in zip(got, want):
+        assert ((x - y).abs().max() / y.abs().max()).item() <= 1e-5
+
+
 @pytest.mark.parametrize("V", [512, 10475])
 def test_synthetic_smplx_params_equal_jax(V):
     jp = jsmplx.synthetic_smplx_params(num_vertices=V)
