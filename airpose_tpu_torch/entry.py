@@ -13,7 +13,7 @@ def entry(device=None):
     (``None`` → CUDA; raises without it)."""
     dev = resolve_device(device)
     B = 8
-    model = AirPoseTwoView(dtype=torch.bfloat16).eval().to(dev)
+    model = AirPoseTwoView(dtype=torch.bfloat16).to(dev)
     x = torch.zeros((B, 2, 224, 224, 3), device=dev)
     bb = torch.zeros((B, 2, 3), device=dev)
     pos = torch.full((B, 2, 3), 0.5, device=dev)

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 from torch import nn
 
+DROPOUT = 0.5  # after fc1 and fc2, active in train mode only
 MEAN_PARAMS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data",
                            "assets", "smpl_mean_params.npz")
 
@@ -30,15 +31,13 @@ def dropout(h: torch.Tensor, rate: float, generator: torch.Generator) -> torch.T
 
 
 class RegressorCore(nn.Module):
-    """One IEF step's MLP. Returns one delta per head. ``dropout_rate``
-    (0.5, after fc1 and fc2) acts in train mode only, with masks from the
-    generator the caller passes."""
+    """One IEF step's MLP. Returns one delta per head. In train mode its
+    dropout draws the masks from the generator the caller passes."""
 
     def __init__(self, in_dim: int, head_dims: Sequence[int],
                  head_names: Sequence[str], generator=None):
         super().__init__()
         self.head_names = tuple(head_names)
-        self.dropout_rate = 0.5
         self.fc1 = nn.Linear(in_dim, 1024)
         self.fc2 = nn.Linear(1024, 1024)
         for fc in (self.fc1, self.fc2):
@@ -52,15 +51,14 @@ class RegressorCore(nn.Module):
 
     def forward(self, xc: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
-        drop = train and self.dropout_rate > 0
-        if drop and generator is None:
+        if train and generator is None:
             raise ValueError("RegressorCore: train-mode dropout needs a torch.Generator")
         h = self.fc1(xc)
-        if drop:
-            h = dropout(h, self.dropout_rate, generator)
+        if train:
+            h = dropout(h, DROPOUT, generator)
         h = self.fc2(h)
-        if drop:
-            h = dropout(h, self.dropout_rate, generator)
+        if train:
+            h = dropout(h, DROPOUT, generator)
         return tuple(getattr(self, name)(h) for name in self.head_names)
 
 

@@ -11,7 +11,8 @@ NHWC, as in the JAX package; inside, the NCHW views of NHWC tensors are
 channels_last, which cuDNN prefers.
 
 Train or eval mode is the ``train`` argument of ``forward``, as in flax;
-``nn.Module.training`` is not read. In train mode BatchNorm normalizes with
+``nn.Module.training`` is not read, so ``.train()`` and ``.eval()`` change
+nothing here or in the models built on the trunk. In train mode BatchNorm normalizes with
 the batch statistics and updates its running statistics as flax does.
 """
 

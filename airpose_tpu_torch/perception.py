@@ -115,7 +115,7 @@ def build_perception(device=None, seed: int = 0, num_vertices: int = 10475,
     calibrate on the two 224² crops of ``bench_inputs``' first frame, as the
     root bench does."""
     dev = resolve_device(device)
-    model = AirPoseTwoView(dtype=torch.bfloat16, seed=seed).eval().to(dev)
+    model = AirPoseTwoView(dtype=torch.bfloat16, seed=seed).to(dev)
     smplx_params = synthetic_smplx_params(num_vertices=num_vertices).to(dev)
     calib = None
     if trunk != "bf16":

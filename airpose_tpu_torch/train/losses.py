@@ -95,7 +95,8 @@ def twoview_loss(pred_pose: torch.Tensor, pred_betas: torch.Tensor,
                  use_kernels: bool = True) -> Tuple[torch.Tensor, Metrics]:
     """The synthetic two-view supervised loss. pred_pose (B, 2, 135)
     [trans·scale | 6D×22], pred_betas (B, 2, 10); ``vertex_mask`` (V,)
-    zeroes hands/face on prediction and GT."""
+    zeroes hands/face on prediction and GT. ``use_kernels=False`` skins
+    with the plain version on any device."""
     B = pred_pose.shape[0]
     trans = pred_pose[..., :3] / trans_scale
     rotmat = rot6d_to_rotmat(pred_pose[..., 3:].reshape(B, 2, 22, 6))
@@ -151,8 +152,8 @@ def twoview_loss(pred_pose: torch.Tensor, pred_betas: torch.Tensor,
 
 def joints_loss(pred_pose: torch.Tensor, pred_betas: torch.Tensor,
                 batch: Dict[str, torch.Tensor], smplx_params: SMPLXParams,
-                w: LossWeights, trans_scale: float = C.TRANS_SCALE,
-                use_kernels: bool = True) -> Tuple[torch.Tensor, Metrics]:
+                w: LossWeights, trans_scale: float = C.TRANS_SCALE
+                ) -> Tuple[torch.Tensor, Metrics]:
     """Joints-only supervised two-view loss for H36M-style GT (cam-frame 3D
     joints and their 2D projections, no SMPL-X parameters): kp2d with each
     camera's own intrinsics, pelvis-aligned kp3d plus the cross-view
@@ -161,7 +162,7 @@ def joints_loss(pred_pose: torch.Tensor, pred_betas: torch.Tensor,
     trans = pred_pose[..., :3] / trans_scale
     rotmat = rot6d_to_rotmat(pred_pose[..., 3:].reshape(B, 2, 22, 6))
 
-    _, joints = canonical_smplx_two_view(smplx_params, pred_betas, rotmat, use_kernels)
+    _, joints = canonical_smplx_two_view(smplx_params, pred_betas, rotmat)
     intr = batch["intr"]
     focal = torch.stack([intr[..., 0, 0], intr[..., 1, 1]], dim=-1)  # (B, 2, 2)
     cam_j, j2d = cam_frame_and_project(rotmat[:, :, 0], trans, joints, intr, focal)
@@ -192,8 +193,8 @@ def joints_loss(pred_pose: torch.Tensor, pred_betas: torch.Tensor,
 def singleview_loss(pred_pose: torch.Tensor, pred_betas: torch.Tensor,
                     batch: Dict[str, torch.Tensor], smplx_params: SMPLXParams,
                     w: LossWeights, trans_scale: float = C.TRANS_SCALE,
-                    vertex_mask: Optional[torch.Tensor] = None,
-                    use_kernels: bool = True) -> Tuple[torch.Tensor, Metrics]:
+                    vertex_mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Metrics]:
     """Full-perspective single view, on view 0 of the batch layout:
     pred_pose (B, 135), pred_betas (B, 10)."""
     B = pred_pose.shape[0]
@@ -201,7 +202,7 @@ def singleview_loss(pred_pose: torch.Tensor, pred_betas: torch.Tensor,
     rotmat = rot6d_to_rotmat(pred_pose[:, 3:].reshape(B, 22, 6))
 
     out = smplx_forward(smplx_params, pred_betas, body_pose=rotmat[:, 1:],
-                        global_orient=_identity_roots(B, pred_betas), use_kernels=use_kernels)
+                        global_orient=_identity_roots(B, pred_betas))
     _, j2d = cam_frame_and_project(rotmat[None, :, 0], trans[None], out.joints[None],
                                    batch["intr"][:, :1], C.FOCAL_LENGTH)
     j2d = j2d[0]
@@ -248,14 +249,14 @@ def _weak_cam_project(rotmat_root, cam, joints, focal, img_res):
 
 def hmr_loss(pred_pose6d: torch.Tensor, pred_betas: torch.Tensor, pred_cam: torch.Tensor,
              batch: Dict[str, torch.Tensor], smplx_params: SMPLXParams, w: LossWeights,
-             img_res: int = C.CROP_SIZE, vertex_mask: Optional[torch.Tensor] = None,
-             use_kernels: bool = True) -> Tuple[torch.Tensor, Metrics]:
+             img_res: int = C.CROP_SIZE, vertex_mask: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Metrics]:
     """Weak-perspective single view: pred_pose6d (B, 132), pred_betas
     (B, 10), pred_cam (B, 3)."""
     B = pred_pose6d.shape[0]
     rotmat = rot6d_to_rotmat(pred_pose6d.reshape(B, 22, 6))
     out = smplx_forward(smplx_params, pred_betas, body_pose=rotmat[:, 1:],
-                        global_orient=_identity_roots(B, pred_betas), use_kernels=use_kernels)
+                        global_orient=_identity_roots(B, pred_betas))
     j2d = _weak_cam_project(rotmat[:, 0], pred_cam, out.joints, C.FOCAL_LENGTH, img_res)
 
     loss_kp2d = _sq(j2d[:, :22], batch["gt_j2d_crop"][:, 0, :22]).mean()
@@ -288,14 +289,14 @@ def hmr_loss(pred_pose6d: torch.Tensor, pred_betas: torch.Tensor, pred_cam: torc
 
 def muhmr_loss(pred_pose6d: torch.Tensor, pred_betas: torch.Tensor, pred_cam: torch.Tensor,
                batch: Dict[str, torch.Tensor], smplx_params: SMPLXParams, w: LossWeights,
-               img_res: int = C.CROP_SIZE, vertex_mask: Optional[torch.Tensor] = None,
-               use_kernels: bool = True) -> Tuple[torch.Tensor, Metrics]:
+               img_res: int = C.CROP_SIZE, vertex_mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Metrics]:
     """Two-view weak-perspective: per-view hmr terms, cross-view consistency
     on the body rotmats only, two camera barriers. pred_pose6d (B, 2, 132),
     pred_betas (B, 2, 10), pred_cam (B, 2, 3)."""
     B = pred_pose6d.shape[0]
     rotmat = rot6d_to_rotmat(pred_pose6d.reshape(B, 2, 22, 6))
-    verts, joints = canonical_smplx_two_view(smplx_params, pred_betas, rotmat, use_kernels)
+    verts, joints = canonical_smplx_two_view(smplx_params, pred_betas, rotmat)
 
     j2d = torch.stack([_weak_cam_project(rotmat[:, v, 0], pred_cam[:, v], joints[:, v],
                                          C.FOCAL_LENGTH, img_res) for v in (0, 1)], dim=1)

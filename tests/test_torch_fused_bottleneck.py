@@ -23,7 +23,7 @@ def trunks():
     """A seeded port trunk with BN statistics moved off (0, 1) and the same
     weights as flax trunk variables; the (jitted) flax trunk runs in bf16."""
     rng = np.random.default_rng(0)
-    trunk = ResNet50(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0)).eval()
+    trunk = ResNet50(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
     sd = trunk.state_dict()
     for k in sd:
         if k.endswith("running_mean"):

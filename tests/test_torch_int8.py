@@ -61,7 +61,7 @@ def setup():
             v = v * torch.from_numpy(rng.uniform(0.8, 1.2, v.shape).astype(np.float32))
         sd["model." + (k.split(".", 1)[1] if k.startswith(("trunk.", "core.")) else k)] = v
     variables = convert_reference_checkpoint(sd)
-    model = AirPoseTwoView(dtype=torch.bfloat16, seed=1).eval()
+    model = AirPoseTwoView(dtype=torch.bfloat16, seed=1)
     load_reference_state_dict(model, state_dict_from_flax(variables))
 
     images = rng.normal(size=(B, 2, IMG, IMG, 3)).astype(np.float32)

@@ -41,7 +41,7 @@ def jax_twoview():
 
 @pytest.fixture(scope="module")
 def port_twoview(jax_twoview):
-    model = AirPoseTwoView(seed=1).eval()
+    model = AirPoseTwoView(seed=1)
     load_reference_state_dict(model, state_dict_from_flax(jax_twoview[1]))
     return model
 

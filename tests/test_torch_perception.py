@@ -63,7 +63,7 @@ def test_perceive_matches_jax_chain():
             v = v * torch.from_numpy(rng.uniform(0.8, 1.2, v.shape).astype(np.float32))
         sd["model." + (k.split(".", 1)[1] if k.startswith(("trunk.", "core.")) else k)] = v
     variables = convert_reference_checkpoint(sd)
-    model = AirPoseTwoView(dtype=torch.bfloat16, seed=1).eval()
+    model = AirPoseTwoView(dtype=torch.bfloat16, seed=1)
     load_reference_state_dict(model, state_dict_from_flax(variables))
 
     images, bb, pos, intr = bench_inputs(B, "cpu", seed=3, crop=IMG)

@@ -25,9 +25,9 @@ Tolerances, each with its reason:
   - eval_step's predictions before the step: atol 1e-4, the bound of
     tests/test_torch_models.py for the same forward.
 Dropout is off on both sides where the packages are compared (its masks
-cannot match across frameworks): the port's ``core.dropout_rate = 0``, the
-JAX side through a test-local replacement of flax's Dropout as
-airpose_tpu.models.regressor sees it."""
+cannot match across frameworks), through test-local replacements: of the
+port's ``dropout`` in airpose_tpu_torch.models.regressor, and of flax's
+Dropout as airpose_tpu.models.regressor sees it."""
 
 import copy
 import types
@@ -41,6 +41,7 @@ import pytest
 import torch
 
 import airpose_tpu.models.regressor as jregressor
+import airpose_tpu_torch.models.regressor as tregressor
 from airpose_tpu.bodymodel import synthetic_smplx_params as j_synthetic
 from airpose_tpu.config import TrainConfig as JTrainConfig
 from airpose_tpu.data import make_synthetic_dataset
@@ -94,7 +95,9 @@ def twoview_pair():
 
 
 @pytest.fixture
-def no_jax_dropout(monkeypatch):
+def no_dropout(monkeypatch):
+    monkeypatch.setattr(tregressor, "dropout", lambda h, rate, generator: h)
+
     class NoDropout(fnn.Dropout):
         def __call__(self, inputs, deterministic=None, rng=None):
             return inputs
@@ -340,7 +343,7 @@ def test_twoview_loss_gradients_through_from_features_match_jax(smplx_pair, data
 
 # ---- the whole step ---------------------------------------------------------------
 
-def test_train_and_eval_step_match_jax(smplx_pair, data, twoview_pair, no_jax_dropout):
+def test_train_and_eval_step_match_jax(smplx_pair, data, twoview_pair, no_dropout):
     """One make_twoview_step_fns step on both packages from the same weights
     (carried by convert_reference_checkpoint / state_dict_from_flax) and the
     same batch, dropout off; eval_step before it, on both, and after it."""
@@ -351,14 +354,14 @@ def test_train_and_eval_step_match_jax(smplx_pair, data, twoview_pair, no_jax_dr
     model = AirPoseTwoView(seed=7)
     from airpose_tpu_torch.train import load_reference_state_dict
     load_reference_state_dict(model, state_dict_from_flax(variables))
-    model.core.dropout_rate = 0.0
     cfg, jcfg = TrainConfig(batch_size=B), JTrainConfig(batch_size=B)
     batch = batch_slice(data, 0, B, "cpu")
 
     # the port's gradients, for the entries where one Adam step shows them
     probe = copy.deepcopy(model)
     in_trans = torch.tensor([0.0, 0.0, 10.0 * cfg.trans_scale]).expand(B, 2, 3)
-    out = probe(batch["images"], batch["bb"], in_trans, train=True)
+    out = probe(batch["images"], batch["bb"], in_trans, train=True,
+                generator=torch.Generator().manual_seed(0))
     grads = dict(zip(dict(probe.named_parameters()), torch.autograd.grad(
         twoview_loss(out.pose, out.betas, batch, tsmplx, cfg.loss)[0],
         list(probe.parameters()))))
