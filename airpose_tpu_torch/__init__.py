@@ -8,19 +8,22 @@ package against its JAX counterpart. This package imports neither JAX nor
 anything of ``airpose_tpu``.
 
 Layer map of the ported slices (the two-view perception chain with its bf16,
-int8 and int8-block trunks, and the synthetic two-view training step):
+int8 and int8-block trunks, the synthetic training steps of every model
+family, and the eval metrics):
   perception.py  the chain of the root bench.py: trunk → IEF → 6D → SMPL-X → projection
   entry.py, bench.py, profile_*.py   entry point, throughput, device-time splits
-  train/         the training step: loop.py (make_twoview_step_fns), state.py
-                 (TrainState, optax-equal AMSGrad), losses.py; flax → torch weight carry
+  train/         the training steps: loop.py (make_twoview_step_fns,
+                 make_singleview_step_fns), state.py (TrainState, optax-equal
+                 AMSGrad), losses.py; flax → torch weight carry of every family
+  eval/          MPJPE, PA-MPJPE, MPE (metrics.py)
   data/          synthetic two-view dataset, joint tables
   config.py      TrainConfig and the loss weights
   models/        ResNet-50 trunk (eval and train-mode BatchNorm), IEF regressor,
-                 AirPoseTwoView
+                 HMR, SingleViewFullCam, MuHMR, AirPoseTwoView, AirPoseTwoViewSep
   ops/           fused layer1 stage, int8 conv and blocks (CUDA kernels), QAT,
                  the nvcc/ctypes builder
   bodymodel/     SMPL-X forward, LBS, skinning (CUDA kernel, with its backward)
-  geometry/      rotation conversions
+  geometry/      rotation conversions, projections and rigid transforms, robustifiers
   csrc/          the CUDA C++ kernel sources (sm_90a)
 
 Entry points run on the GPU: ``device=None`` means ``"cuda"``, and without a

@@ -269,35 +269,49 @@ def twoview_int8_forward(model, qparams: Dict, act_scales: Dict, images: torch.T
 
 
 class Int8Inference:
-    """Model-like shim whose ``apply`` runs a model's eval forward through
-    the int8 trunk: quantizes ``model.trunk`` and calibrates it on
-    ``sample_images`` (N, H, W, 3) once, then takes single-view (B, H, W, 3)
-    or view-folded (B, V, H, W, 3) images. The per-drone two-trunk family
-    (``_sep``) raises until its model is ported."""
+    """Model-like shim whose ``apply`` runs any family's eval forward
+    through the int8 trunk: quantizes the model's trunk and calibrates it on
+    ``sample_images`` (N, H, W, 3) once, then takes single-view
+    (B, H, W, 3) or view-folded (B, V, H, W, 3) images. A per-drone model
+    (``trunk0``/``trunk1``, the ``_sep`` family) has each trunk quantized
+    and calibrated on its own, on the same sample images, and view v's
+    crops go through trunk v. ``qparams`` and ``act_scales`` hold one entry
+    per trunk."""
 
     def __init__(self, model, sample_images: torch.Tensor, int8_stages=(1, 2, 3, 4)):
-        if hasattr(model, "trunk0"):
-            raise NotImplementedError(
-                "Int8Inference: the per-drone two-trunk models are not ported yet")
         self.model = model
         self.int8_stages = tuple(int8_stages)
-        self.qparams = quantize_trunk_params(model.trunk.state_dict())
-        self.act_scales = calibrate_act_scales(self.qparams, sample_images)
+        self.sep = hasattr(model, "trunk0")
+        trunks = (model.trunk0, model.trunk1) if self.sep else (model.trunk,)
+        self.qparams = [quantize_trunk_params(t.state_dict()) for t in trunks]
+        self.act_scales = [calibrate_act_scales(qp, sample_images) for qp in self.qparams]
 
-    def _features(self, images: torch.Tensor) -> torch.Tensor:
+    def _infer(self, t: int, images: torch.Tensor) -> torch.Tensor:
+        """Trunk ``t`` over images (..., H, W, 3) → (..., 2048)."""
         lead = images.shape[:-3]
-        xf = resnet50_int8_infer(self.qparams, images.reshape((-1,) + images.shape[-3:]),
-                                 act_scales=self.act_scales, int8_stages=self.int8_stages)
+        xf = resnet50_int8_infer(self.qparams[t], images.reshape((-1,) + images.shape[-3:]),
+                                 act_scales=self.act_scales[t], int8_stages=self.int8_stages)
         return xf.reshape(lead + (-1,))
 
+    def _features(self, images: torch.Tensor) -> torch.Tensor:
+        if self.sep:
+            return torch.stack([self._infer(v, images[:, v]) for v in (0, 1)], dim=1)
+        return self._infer(0, images)
+
     @torch.no_grad()
-    def apply(self, images: torch.Tensor, *args, train: bool = False):
+    def apply(self, images: torch.Tensor, *args, iters: Optional[int] = None,
+              train: bool = False):
         if train:
             raise ValueError("the int8 trunk is inference-only")
-        return self.model.from_features(self._features(images), *args)
+        return self.model.from_features(self._features(images), *args, iters=iters)
 
     def clip_report(self, images: torch.Tensor) -> Dict[str, float]:
-        """``calibration_clip_rates`` of ``images`` under this shim's scales."""
-        return calibration_clip_rates(self.qparams, self.act_scales,
-                                      images.reshape((-1,) + images.shape[-3:]),
-                                      int8_stages=self.int8_stages)
+        """``calibration_clip_rates`` of ``images`` under this shim's scales,
+        merged over the trunks under ``trunk{v}/`` keys for a per-drone model."""
+        def rates(t, x):
+            return calibration_clip_rates(self.qparams[t], self.act_scales[t],
+                                          x.reshape((-1,) + x.shape[-3:]),
+                                          int8_stages=self.int8_stages)
+        if not self.sep:
+            return rates(0, images)
+        return {f"trunk{v}/{k}": r for v in (0, 1) for k, r in rates(v, images[:, v]).items()}

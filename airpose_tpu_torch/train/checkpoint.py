@@ -1,12 +1,14 @@
 """Weight carry between the JAX package and the port.
 
 The common format is the reference AirPose state dict that
-airpose_tpu/train/checkpoint.py::export_reference_checkpoint writes: keys
-under ``model.``, OIHW convolutions, (out, in) linears, BatchNorm as
+airpose_tpu/train/checkpoint.py::export_reference_checkpoint writes for each
+model family: keys under ``model.`` (``model.copenet{v}.`` per drone for
+the ``_sep`` family), OIHW convolutions, (out, in) linears, BatchNorm as
 weight/bias/running_mean/running_var/num_batches_tracked, the mean-parameter
-buffers, and the dead ``deccam`` head the reference net defines but never
-calls. ``int8_operands_from_jax`` carries the JAX package's quantized int8
-trunk operands and calibration table.
+buffers, and the ``deccam`` head, live in hmr and muhmr and dead (defined,
+never called) in the full-camera families. ``int8_operands_from_jax``
+carries the JAX package's quantized int8 trunk operands and calibration
+table.
 """
 
 from typing import Dict, Mapping, Optional
@@ -14,9 +16,12 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from ..models import MODEL_REGISTRY
 from ..models.regressor import load_mean_params
 
 _HEADS = ("fc1", "fc2", "decpose", "decshape")
+SEP = "copenet_twoview_sep"
+LIVE_DECCAM = ("hmr", "muhmr")  # the weak-camera families regress the camera
 
 
 def _t(a) -> torch.Tensor:
@@ -48,23 +53,37 @@ def _resnet_entries(params, stats, sd: Dict[str, torch.Tensor], prefix: str) -> 
                 put_bn(f"{dst}.downsample.1", src["downsample_bn"], st["downsample_bn"])
 
 
-def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX AirPoseTwoView ``{"params", "batch_stats"}`` tree (numpy
-    leaves) → the reference two-view state dict, key for key what
-    ``export_reference_checkpoint(variables, "copenet_twoview", path)``
-    writes under ``"state_dict"``."""
+def state_dict_from_flax(variables: Mapping, model_name: str = "copenet_twoview"
+                         ) -> Dict[str, torch.Tensor]:
+    """A JAX model family's ``{"params", "batch_stats"}`` tree (numpy
+    leaves) → its reference state dict, key for key what
+    ``export_reference_checkpoint(variables, model_name, path)`` writes
+    under ``"state_dict"``: the per-drone family under ``model.copenet{v}.``,
+    the others under ``model.``; ``init_position`` for the single-view
+    model, ``init_cam`` for the rest; zero ``deccam`` entries where the head
+    is dead (every family but hmr and muhmr)."""
+    if model_name not in MODEL_REGISTRY:
+        raise ValueError(f"unknown model family: {model_name}")
     params, stats = variables["params"], variables["batch_stats"]
+    live_cam = model_name in LIVE_DECCAM
     sd: Dict[str, torch.Tensor] = {}
-    _resnet_entries(params["trunk"], stats["trunk"], sd, "model.")
-    for name in _HEADS:
-        sd[f"model.{name}.weight"] = _t(np.asarray(params["core"][name]["kernel"]).T)
-        sd[f"model.{name}.bias"] = _t(params["core"][name]["bias"])
-    pose, shape, cam = load_mean_params()
-    sd["model.init_pose"] = torch.from_numpy(pose[None].copy())
-    sd["model.init_shape"] = torch.from_numpy(shape[None].copy())
-    sd["model.init_cam"] = torch.from_numpy(cam[None].copy())
-    sd["model.deccam.weight"] = torch.zeros(3, 1024)
-    sd["model.deccam.bias"] = torch.zeros(3)
+    nets = ([(f"model.copenet{v}.", f"trunk{v}", f"core{v}") for v in (0, 1)]
+            if model_name == SEP else [("model.", "trunk", "core")])
+    for prefix, trunk, core in nets:
+        _resnet_entries(params[trunk], stats[trunk], sd, prefix)
+        for name in _HEADS + (("deccam",) if live_cam else ()):
+            sd[f"{prefix}{name}.weight"] = _t(np.asarray(params[core][name]["kernel"]).T)
+            sd[f"{prefix}{name}.bias"] = _t(params[core][name]["bias"])
+        pose, shape, cam = load_mean_params()
+        sd[f"{prefix}init_pose"] = torch.from_numpy(pose[None].copy())
+        sd[f"{prefix}init_shape"] = torch.from_numpy(shape[None].copy())
+        if model_name == "copenet_singleview":
+            sd[f"{prefix}init_position"] = torch.tensor([[0.0, 0.0, 10.0 / 0.05]])
+        else:
+            sd[f"{prefix}init_cam"] = torch.from_numpy(cam[None].copy())
+        if not live_cam:
+            sd[f"{prefix}deccam.weight"] = torch.zeros(3, 1024)
+            sd[f"{prefix}deccam.bias"] = torch.zeros(3)
     return sd
 
 
@@ -115,22 +134,36 @@ def int8_operands_from_jax(qparams: Mapping, act_scales: Mapping,
     return out, scales, {"s_in": float(pblocks["s_in"]), "blocks": blocks}
 
 
-def _module_key(key: str) -> str:
+def _module_key(key: str, model_name: str) -> Optional[str]:
+    """A reference key without ``model.`` → the port model's key, or None
+    for the dead ``deccam`` head. The per-drone family's ``copenet{v}.``
+    nets map to ``trunk{v}`` and ``core{v}``, their buffers to ``core{v}``."""
+    view = ""
+    if model_name == SEP:
+        net, key = key.split(".", 1)
+        view = net[len("copenet"):]
     head = key.split(".", 1)[0]
-    if head in _HEADS:
-        return "core." + key
+    if head == "deccam" and model_name not in LIVE_DECCAM:
+        return None
+    if head in _HEADS + ("deccam",):
+        return f"core{view}.{key}"
     if head.startswith("init_"):
-        return key
-    return "trunk." + key
+        return f"core{view}.{key}" if view else key
+    return f"trunk{view}.{key}"
 
 
-def load_reference_state_dict(model: torch.nn.Module, sd: Mapping[str, torch.Tensor]):
-    """Load a reference two-view state dict (or a checkpoint holding one
-    under ``"state_dict"``) into an AirPoseTwoView with ``strict=True``.
-    Only the ``model.`` prefix is stripped and only the dead ``deccam.*``
-    keys are dropped."""
+def load_reference_state_dict(model: torch.nn.Module, sd: Mapping[str, torch.Tensor],
+                              model_name: str = "copenet_twoview"):
+    """Load a reference state dict of ``model_name``'s family (or a
+    checkpoint holding one under ``"state_dict"``) into the port's model
+    with ``strict=True``. Only the ``model.`` prefix is stripped, and only
+    the ``deccam`` entries of the families whose head is dead are dropped."""
+    if model_name not in MODEL_REGISTRY:
+        raise ValueError(f"unknown model family: {model_name}")
     sd = sd.get("state_dict", sd)
-    sd = {k[len("model."):] if k.startswith("model.") else k: v for k, v in sd.items()}
-    return model.load_state_dict(
-        {_module_key(k): v for k, v in sd.items() if not k.startswith("deccam.")},
-        strict=True)
+    out = {}
+    for k, v in sd.items():
+        key = _module_key(k[len("model."):] if k.startswith("model.") else k, model_name)
+        if key is not None:
+            out[key] = v
+    return model.load_state_dict(out, strict=True)

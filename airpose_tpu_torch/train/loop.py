@@ -1,8 +1,10 @@
-"""Train and eval steps of the two-view model (port of
-airpose_tpu/train/loop.py:21-146).
+"""Train and eval steps of the model families (port of
+airpose_tpu/train/loop.py:21-222).
 
-``make_twoview_step_fns`` returns ``train_step(state, batch, generator) →
-(state, metrics)`` and ``eval_step(state, batch) → (metrics, predictions)``.
+``make_twoview_step_fns`` (the two-view models) and
+``make_singleview_step_fns`` (hmr, copenet_singleview, muhmr) return
+``train_step(state, batch, generator) → (state, metrics)`` and
+``eval_step(state, batch) → (metrics, predictions)``.
 The model is applied with the state's tensors (``torch.func.functional_call``),
 so the state is what the step reads and writes, as in the JAX package:
 the forward, the loss, one backward, then the optimizer, all in place. The
@@ -70,24 +72,18 @@ def _eval_input_trans(batch: Batch, cfg: TrainConfig) -> torch.Tensor:
     return t * cfg.trans_scale
 
 
-def make_twoview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
-                          cfg: TrainConfig, tx: AMSGrad, loss=None, device=None):
-    """(train_step, eval_step) for AirPoseTwoView. ``loss`` defaults to the
-    SMPL-X-parameter-supervised ``twoview_loss``; ``joints_loss`` serves
-    joints-only GT. The steps run on ``device`` (CUDA by default; raises
-    without it), where ``model`` and ``smplx_params`` must already be."""
-    dev = resolve_device(device)
-    if loss is None:
-        loss = L.twoview_loss
+def _step_fns(model: torch.nn.Module, cfg: TrainConfig, tx: AMSGrad, dev: torch.device,
+              inputs, loss_from_out, predictions):
+    """(train_step, eval_step) of one family: ``inputs(batch, in_trans)``
+    gives the model's positional arguments, ``loss_from_out(out, batch)``
+    its loss and ``predictions(out)`` what eval_step returns beside the
+    metrics."""
 
     def forward(state: TrainState, batch: Batch, in_trans, train: bool, generator):
         tensors = {**_maybe_qat(state.params, cfg), **state.batch_stats}
-        return functional_call(model, tensors, (batch["images"], batch["bb"], in_trans),
+        return functional_call(model, tensors, inputs(batch, in_trans),
                                {"iters": cfg.reg_iters, "train": train,
                                 "generator": generator})
-
-    def loss_from_out(out, batch):
-        return loss(out.pose, out.betas, batch, smplx_params, cfg.loss, cfg.trans_scale)
 
     def check_device(batch):
         if batch["images"].device.type != dev.type:
@@ -112,12 +108,68 @@ def make_twoview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
         check_device(batch)
         out = forward(state, batch, _eval_input_trans(batch, cfg), False, None)
         _, metrics = loss_from_out(out, batch)
-        pose = out.pose
-        B = pose.shape[0]
-        return metrics, {
-            "pred_trans": pose[..., :3] / cfg.trans_scale,
-            "pred_rotmat": rot6d_to_rotmat(pose[..., 3:].reshape(B, 2, 22, 6)),
-            "pred_betas": out.betas,
-        }
+        return metrics, predictions(out)
 
     return train_step, eval_step
+
+
+def make_twoview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
+                          cfg: TrainConfig, tx: AMSGrad, loss=None, device=None):
+    """(train_step, eval_step) for AirPoseTwoView or the per-drone
+    AirPoseTwoViewSep (the same call). ``loss`` defaults to the
+    SMPL-X-parameter-supervised ``twoview_loss``; ``joints_loss`` serves
+    joints-only GT. The steps run on ``device`` (CUDA by default; raises
+    without it), where ``model`` and ``smplx_params`` must already be.
+    eval_step's predictions are pred_trans (B, 2, 3), pred_rotmat
+    (B, 2, 22, 3, 3) and pred_betas (B, 2, 10)."""
+    dev = resolve_device(device)
+    if loss is None:
+        loss = L.twoview_loss
+
+    def predictions(out):
+        pose = out.pose
+        return {"pred_trans": pose[..., :3] / cfg.trans_scale,
+                "pred_rotmat": rot6d_to_rotmat(pose[..., 3:].reshape(pose.shape[0], 2, 22, 6)),
+                "pred_betas": out.betas}
+
+    return _step_fns(
+        model, cfg, tx, dev, lambda batch, in_trans: (batch["images"], batch["bb"], in_trans),
+        lambda out, batch: loss(out.pose, out.betas, batch, smplx_params, cfg.loss,
+                                cfg.trans_scale),
+        predictions)
+
+
+# each single-view family's forward arguments from the two-view batch layout
+_SINGLEVIEW_INPUTS = {
+    "hmr": lambda batch, in_trans: (batch["images"][:, 0],),
+    "copenet_singleview": lambda batch, in_trans: (batch["images"][:, 0], batch["bb"][:, 0],
+                                                   in_trans[:, 0]),
+    "muhmr": lambda batch, in_trans: (batch["images"],),
+}
+
+
+def make_singleview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
+                             cfg: TrainConfig, tx: AMSGrad, family: str,
+                             vertex_mask: Optional[torch.Tensor] = None,
+                             use_kernels: bool = True, device=None):
+    """(train_step, eval_step) for the single-view families ('hmr',
+    'copenet_singleview') and 'muhmr' on the two-view batch layout: view 0
+    where the family sees one view. ``vertex_mask`` (V,) restricts the
+    vertex term to the body; ``use_kernels=False`` skins with the plain
+    version. eval_step returns the model's output beside the metrics. The
+    steps run on ``device`` as make_twoview_step_fns's do."""
+    dev = resolve_device(device)
+    if family not in _SINGLEVIEW_INPUTS:
+        raise ValueError(f"not a single-view family: {family}")
+
+    def loss_from_out(out, batch):
+        if family == "copenet_singleview":
+            return L.singleview_loss(out.pose, out.betas, batch, smplx_params, cfg.loss,
+                                     cfg.trans_scale, vertex_mask=vertex_mask,
+                                     use_kernels=use_kernels)
+        fn = L.hmr_loss if family == "hmr" else L.muhmr_loss
+        return fn(out.pose6d, out.betas, out.cam, batch, smplx_params, cfg.loss, cfg.img_res,
+                  vertex_mask=vertex_mask, use_kernels=use_kernels)
+
+    return _step_fns(model, cfg, tx, dev, _SINGLEVIEW_INPUTS[family], loss_from_out,
+                     lambda out: out)

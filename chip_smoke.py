@@ -42,7 +42,18 @@ Phases, each of which exits non-zero on failure:
      exactly once, with the loss finite and falling; one eval_step; then
      ms per step, frames/s, the forward / backward / optimizer split from
      CUDA events around loop.py's own spans and the device's idle share
-     from torch.profiler.
+     from torch.profiler;
+  9. the other model families on the same B = 30 batch: twoview_eval_metrics
+     of phase 8's eval_step predictions with the skinning kernel against the
+     plain version; for hmr, copenet_singleview and muhmr
+     (make_singleview_step_fns) and copenet_twoview_sep
+     (make_twoview_step_fns), each with its bf16 trunk, one step with the
+     kernel against one with the plain skinning, then 10 steps each
+     launching skinning once with the loss finite and falling, and ms per
+     step; the per-drone model behind Int8Inference (104 int8 conv launches,
+     each trunk's features equal to its plain version's), and its staged
+     serving (AirPoseTwoViewSepView.regress_step, 3 rounds a view) against
+     its fused forward.
 Prints the kernels as one JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA device is available.
@@ -103,6 +114,24 @@ SKIN_GRAD_REL = 1e-5
 TRAIN_F32_BOUNDS = {"loss": 1e-6, "regressor": 1e-6, "trunk": 1e-3}
 TRAIN_BF16_BOUNDS = {"loss": 1e-6, "regressor": 1e-6, "trunk": 5e-2}
 TRAIN_STEPS = 25
+# Phase 9. Kernel step against plain step per family, on the bf16 trunk.
+# Measured on the H100: each family's bf16 step equals itself bit for bit;
+# against the plain step the loss is equal, the regressor gradients are
+# 1.8e-9 (copenet_twoview_sep) to 6.0e-8 (hmr) rel-L2 apart, bound 1e-6 as
+# in phase 8; the trunk gradients 1.78e-2 (hmr), 2.02e-2
+# (copenet_singleview), 2.22e-2 (muhmr, copenet_twoview_sep) apart, as
+# phase 8's bf16 step (flipped bf16 roundings in the trunk's backward);
+# bound 5e-2, 2.25 times the largest.
+FAMILY_BOUNDS = {family: {"loss": 1e-6, "regressor": 1e-6, "trunk": 5e-2}
+                 for family in ("hmr", "copenet_singleview", "muhmr", "copenet_twoview_sep")}
+FAMILY_STEPS = 10
+# The six eval metrics with the kernel against the plain skinning: f32 sums
+# in another order over 10,475 vertices, ~1e-7 relative.
+EVAL_REL = 1e-5
+# _sep int8 IEF on bit-equal features: only the f32 regressor's order.
+INT8_SEP_REL_L2 = 1e-5
+# staged _sep vs fused: the same trunks and cores on the same inputs.
+STAGED_ATOL = 1e-5
 
 
 def log(msg):
@@ -609,8 +638,8 @@ def skinning_backward_at(w, a, p):
 
 class GradProbe:
     """A stand-in for the optimizer that keeps the gradients the train step
-    hands it and updates nothing, so that steps driven through
-    make_twoview_step_fns all start from the same weights."""
+    hands it and updates nothing, so that steps driven through a step
+    factory all start from the same weights."""
 
     def update(self, grads, opt_state, params):
         self.grads = grads
@@ -618,7 +647,8 @@ class GradProbe:
 
 def grad_agreement(a, b):
     """Relative difference of two probed steps' losses and rel-L2 of their
-    regressor's and trunk's gradients; ``a``, ``b``: (loss, grads)."""
+    regressor's and trunk's gradients (core*, trunk*: one or one per drone);
+    ``a``, ``b``: (loss, grads)."""
     (loss_a, ga), (loss_b, gb) = a, b
 
     def rel_l2(prefix):
@@ -627,38 +657,61 @@ def grad_agreement(a, b):
         return (num / sum(gb[n].float().pow(2).sum() for n in names)).sqrt().item()
 
     return {"loss": abs(loss_a - loss_b) / abs(loss_b),
-            "regressor": rel_l2("core."), "trunk": rel_l2("trunk.")}
+            "regressor": rel_l2("core"), "trunk": rel_l2("trunk")}
 
 
-def kernel_vs_plain_step(model, smplx_params, cfg, batch, bounds):
+def kernel_vs_plain_step(model, make_steps, cfg, batch, bounds, what):
     """One train step's loss and gradients with the skinning kernel against
-    the same step with the plain version, each driven through
-    make_twoview_step_fns with GradProbe for its optimizer, from the same
-    weights and generator seed (so the same dropout masks); the kernel step
-    against itself gives the floor of the comparison."""
-    from airpose_tpu_torch.train import create_train_state, make_twoview_step_fns, twoview_loss
+    the same step with the plain version, each driven through the step
+    factory (``make_steps(tx, use_kernels)`` → (train_step, eval_step))
+    with GradProbe for its optimizer, from the same weights and generator
+    seed (so the same dropout masks); the kernel step against itself gives
+    the floor of the comparison."""
+    from airpose_tpu_torch.train import create_train_state
 
     state, _ = create_train_state(model, cfg.lr)
     dev = batch["images"].device
 
-    def probed_step(loss):
+    def probed_step(use_kernels):
         probe = GradProbe()
-        step, _ = make_twoview_step_fns(model, smplx_params, cfg, probe, loss=loss)
+        step, _ = make_steps(probe, use_kernels)
 
         def run():
             _, metrics = step(state, batch, torch.Generator(device=dev).manual_seed(11))
             return metrics["loss"].item(), probe.grads
         return run
 
-    kernel_step = probed_step(None)
+    kernel_step = probed_step(True)
     first = kernel_step()
     floor = grad_agreement(kernel_step(), first)
-    plain = grad_agreement(probed_step(partial(twoview_loss, use_kernels=False))(), first)
-    log(f"train step, {model.trunk.dtype} trunk: skinning kernel vs plain {plain} (bounds "
-        f"{bounds}); kernel vs itself {floor}")
+    plain = grad_agreement(probed_step(False)(), first)
+    log(f"train step, {what}: skinning kernel vs plain {plain} (bounds {bounds}); "
+        f"kernel vs itself {floor}")
     check(all(plain[k] <= bounds[k] for k in bounds),
-          f"the kernel's train step disagrees with the plain step: {plain}")
+          f"the kernel's {what} train step disagrees with the plain step: {plain}")
     return {"vs_plain": plain, "vs_itself": floor}
+
+
+def twoview_steps(model, smplx_params, cfg):
+    """make_steps for the two-view models: the plain step skins through
+    twoview_loss's plain version."""
+    from airpose_tpu_torch.train import make_twoview_step_fns, twoview_loss
+
+    def make_steps(tx, use_kernels):
+        return make_twoview_step_fns(
+            model, smplx_params, cfg, tx,
+            loss=None if use_kernels else partial(twoview_loss, use_kernels=False))
+    return make_steps
+
+
+def singleview_steps(model, smplx_params, cfg, family):
+    """make_steps for the single-view families and muhmr."""
+    from airpose_tpu_torch.train import make_singleview_step_fns
+
+    def make_steps(tx, use_kernels):
+        return make_singleview_step_fns(model, smplx_params, cfg, tx, family,
+                                        use_kernels=use_kernels)
+    return make_steps
 
 
 def phase_train(dev):
@@ -690,10 +743,13 @@ def phase_train(dev):
         smplx_params.lbs_weights, torch.from_numpy(rel).to(dev),
         torch.from_numpy(rng.normal(size=(2 * B, 10475, 3)).astype(np.float32)).to(dev))
 
-    agree = {"f32": kernel_vs_plain_step(AirPoseTwoView(seed=0).to(dev), smplx_params, cfg,
-                                         batch, TRAIN_F32_BOUNDS)}
+    f32_model = AirPoseTwoView(seed=0).to(dev)
+    agree = {"f32": kernel_vs_plain_step(f32_model, twoview_steps(f32_model, smplx_params, cfg),
+                                         cfg, batch, TRAIN_F32_BOUNDS, "f32 trunk")}
+    del f32_model
     model = AirPoseTwoView(dtype=torch.bfloat16, seed=0).to(dev)
-    agree["bf16"] = kernel_vs_plain_step(model, smplx_params, cfg, batch, TRAIN_BF16_BOUNDS)
+    agree["bf16"] = kernel_vs_plain_step(model, twoview_steps(model, smplx_params, cfg), cfg,
+                                         batch, TRAIN_BF16_BOUNDS, "bf16 trunk")
 
     state, tx = create_train_state(model, cfg.lr)
     train_step, eval_step = make_twoview_step_fns(model, smplx_params, cfg, tx)
@@ -768,7 +824,143 @@ def phase_train(dev):
                       "busy_ms": busy_ms, "idle_share": 1 - busy_ms / step_ms,
                       "profiled_step_ms": prof_ms,
                       "device_events_per_step": len(device_events) / n_prof,
-                      "losses": losses, "kernel_vs_plain": agree}
+                      "losses": losses, "kernel_vs_plain": agree}, (smplx_params, batch, preds)
+
+
+def phase_eval_metrics(smplx_params, batch, preds):
+    """Phase 9, check 3: twoview_eval_metrics of eval_step's predictions
+    against the batch's GT, with the skinning kernel (two launches: the
+    predicted and the GT bodies, 2·B each) and with the plain version."""
+    from airpose_tpu_torch.bodymodel import cuda_lbs
+    from airpose_tpu_torch.eval import twoview_eval_metrics
+
+    args = (smplx_params, preds["pred_rotmat"], preds["pred_betas"], preds["pred_trans"],
+            batch["gt_pose_rotmat"], batch["gt_orient"], batch["gt_betas"], batch["gt_trans"])
+    cuda_lbs.launches = 0
+    got = twoview_eval_metrics(*args)
+    torch.cuda.synchronize()
+    launches = cuda_lbs.launches
+    check(launches == 2, f"twoview_eval_metrics launched skinning {launches} times, expected 2")
+    want = twoview_eval_metrics(*args, use_kernels=False)
+    got, want = ({k: v.item() for k, v in m.items()} for m in (got, want))
+    rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+    log(f"eval metrics after {TRAIN_STEPS} steps (B={batch['images'].shape[0]}): {got}; "
+        f"kernel vs plain: max relative difference {rel:.3e} (bound {EVAL_REL})")
+    check(len(got) == 6 and all(np.isfinite(v) for v in got.values()),
+          f"eval metrics {got}")
+    check(rel <= EVAL_REL, f"eval metrics with the kernel disagree with the plain ones: {rel}")
+    return {"metrics": got, "plain": want, "max_rel": rel, "skinning_launches": launches}
+
+
+def phase_families(dev, smplx_params, batch, steps=FAMILY_STEPS):
+    """Phase 9, checks 1-2: each of the other families' train steps on the
+    bf16 trunk (TrainConfig(model=family)), kernel step against plain step,
+    then ``steps`` steps each launching skinning once (every family's loss
+    makes one SMPL-X call: B bodies for hmr and copenet_singleview, 2·B
+    folded for muhmr and the per-drone model), the loss falling."""
+    from airpose_tpu_torch.bodymodel import cuda_lbs
+    from airpose_tpu_torch.config import TrainConfig
+    from airpose_tpu_torch.models import MODEL_REGISTRY
+    from airpose_tpu_torch.train import create_train_state
+
+    B = batch["images"].shape[0]
+    out = {}
+    for family in FAMILY_BOUNDS:
+        cfg = TrainConfig(model=family)
+        model = MODEL_REGISTRY[family](dtype=torch.bfloat16, seed=0).to(dev)
+        make_steps = (twoview_steps(model, smplx_params, cfg) if family == "copenet_twoview_sep"
+                      else singleview_steps(model, smplx_params, cfg, family))
+        agree = kernel_vs_plain_step(model, make_steps, cfg, batch, FAMILY_BOUNDS[family],
+                                     f"{family}, bf16 trunk")
+        state, tx = create_train_state(model, cfg.lr)
+        train_step, _ = make_steps(tx, True)
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        losses = []
+        for i in range(steps):
+            cuda_lbs.launches = 0
+            state, metrics = train_step(state, batch, gen)
+            losses.append(metrics["loss"].item())
+            check(cuda_lbs.launches == 1, f"{family} train step {i} launched skinning "
+                  f"{cuda_lbs.launches} times, expected 1")
+        check(bool(np.isfinite(losses).all()), f"non-finite {family} training loss {losses}")
+        check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+              f"{family} training loss did not fall: {losses}")
+        step_ms = wall_ms(lambda: train_step(state, batch, gen), iters=5, warmup=1)
+        log(f"{family}: {steps} steps at B={B}, losses {[round(x, 1) for x in losses]}; "
+            f"{step_ms:.3f} ms a step, {B / step_ms * 1e3:.1f} frames/s")
+        out[family] = {"kernel_vs_plain": agree, "losses": losses, "step_ms": step_ms,
+                       "frames_per_s": B / step_ms * 1e3, "skinning_launches_per_step": 1}
+        del model, state, tx, train_step, make_steps
+        torch.cuda.empty_cache()
+    return out
+
+
+@torch.no_grad()
+def phase_sep_serving(dev, batch):
+    """Phase 9, checks 4-5: the per-drone model (bf16, seed 0) behind
+    Int8Inference at B frames (each trunk quantized and calibrated on its
+    own, on the first frame's two crops): 52 int8 conv launches and one
+    torch quantize call per trunk, each trunk's features equal to its plain
+    int8 conv version's, the IEF on them within INT8_SEP_REL_L2; then three
+    staged rounds of AirPoseTwoViewSepView.regress_step for both views
+    against the fused forward."""
+    from airpose_tpu_torch import constants as C
+    from airpose_tpu_torch.models import AirPoseTwoViewSep, AirPoseTwoViewSepView, mean_init_state
+    from airpose_tpu_torch.ops import int8_conv as ic
+    from airpose_tpu_torch.ops import int8_trunk as it
+
+    images, bb = batch["images"], batch["bb"]
+    B = images.shape[0]
+    pos = torch.full_like(bb, 10.0 * C.TRANS_SCALE)
+    model = AirPoseTwoViewSep(dtype=torch.bfloat16, seed=0).to(dev)
+    shim = it.Int8Inference(model, images[0])
+    ic.launches = it.quantize_calls = 0
+    out = shim.apply(images, bb, pos)
+    torch.cuda.synchronize()
+    n = {"int8_conv": ic.launches, "torch quantize calls": it.quantize_calls}
+    log(f"_sep int8 inference at B={B}: launches {n}")
+    check(n == {"int8_conv": 104, "torch quantize calls": 2},
+          f"_sep int8 inference launched {n}, expected 104 int8 conv launches and 2 torch "
+          "quantize calls")
+    check(bool(torch.isfinite(out.pose).all() and torch.isfinite(out.betas).all()),
+          "non-finite _sep int8 output")
+    xf = shim._features(images)
+    plain = torch.stack([it.resnet50_int8_infer(shim.qparams[v], images[:, v],
+                                                shim.act_scales[v], use_kernels=False)
+                         for v in (0, 1)], dim=1)
+    for v in (0, 1):
+        check(torch.equal(xf[:, v], plain[:, v]), f"_sep int8 trunk{v} differs from its plain "
+              f"version by {(xf[:, v] - plain[:, v]).abs().max().item()}")
+    ref = model.from_features(plain, bb, pos)
+    rel = {k: ((a - b).norm() / b.norm()).item()
+           for k, a, b in (("pose", out.pose, ref.pose), ("betas", out.betas, ref.betas))}
+    log(f"_sep int8: each trunk's features equal their plain version's; IEF vs plain: "
+        f"rel-L2 {rel} (bound {INT8_SEP_REL_L2})")
+    check(all(r <= INT8_SEP_REL_L2 for r in rel.values()),
+          f"_sep int8 IEF disagrees with the plain one: {rel}")
+    ms = wall_ms(lambda: shim.apply(images, bb, pos), iters=10, warmup=2)
+    log(f"_sep int8 inference: {ms:.3f} ms a call, {B / ms * 1e3:.1f} two-view frames/s")
+
+    fused = model(images, bb, pos)
+    views = []
+    for v in (0, 1):
+        view = AirPoseTwoViewSepView(dtype=torch.bfloat16, seed=1, view=v)
+        view.load_state_dict(model.state_dict())
+        views.append(view.to(dev))
+    feats = [views[v](images[:, v]) for v in (0, 1)]
+    theta, shape = mean_init_state((B, 2), dev)[:2]
+    pose = torch.cat([pos, theta], dim=-1)
+    for _ in range(3):
+        steps = [views[v].regress_step(feats[v], bb[:, v], pose[:, v], shape[:, v],
+                                       pose[:, 1 - v, 9:], shape[:, 1 - v]) for v in (0, 1)]
+        pose = torch.stack([p for p, _ in steps], dim=1)
+        shape = torch.stack([s for _, s in steps], dim=1)
+    diff = max((pose - fused.pose).abs().max().item(), (shape - fused.betas).abs().max().item())
+    log(f"staged _sep (3 rounds of regress_step per view) vs fused: max |diff| {diff:.3e} "
+        f"(bound {STAGED_ATOL})")
+    check(diff <= STAGED_ATOL, f"staged _sep serving disagrees with the fused forward: {diff}")
+    return {"int8": {"launches": n, "ief_rel_l2": rel, "ms": ms, "frames_per_s": B / ms * 1e3},
+            "staged_max_abs_diff": diff}
 
 
 def main():
@@ -808,8 +1000,14 @@ def main():
         f"int8_block {int8_fps['int8_block']:.1f}")
     del model, smplx_params, int8_features, qparams, blocks, block_features, inputs, crops
     torch.cuda.empty_cache()
-    kernels[0]["backward"], train = phase_train(dev)
+    kernels[0]["backward"], train, (smplx_params, batch, preds) = phase_train(dev)
     log(json.dumps({"train_step": train}))
+    t9 = time.perf_counter()
+    families = {"eval_metrics": phase_eval_metrics(smplx_params, batch, preds)}
+    families["train_steps"] = phase_families(dev, smplx_params, batch)
+    families["sep_serving"] = phase_sep_serving(dev, batch)
+    log(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    log(json.dumps({"families": families}))
     # launches: kernel launches in the main path's run of the chain that uses
     # each kernel (int8_block: its 42 conv launches, beside its 13 block calls)
     launches["int8_conv"] = int8_launches["int8"]["int8_conv"]
@@ -818,6 +1016,14 @@ def main():
         k["launches"] = launches[k["name"]]
         if k["name"] == "int8_block":
             k["blocks"] = int8_launches["int8_block"]["int8_block calls"]
+    # launches on phase 9's paths: skinning once a train step of each family
+    # and twice in the eval metrics, the int8 conv in the _sep int8 inference
+    kernels[0]["phase9_launches"] = {
+        **{f"{f} train step": v["skinning_launches_per_step"]
+           for f, v in families["train_steps"].items()},
+        "twoview_eval_metrics": families["eval_metrics"]["skinning_launches"]}
+    next(k for k in kernels if k["name"] == "int8_conv")["phase9_launches"] = {
+        "_sep int8 inference": families["sep_serving"]["int8"]["launches"]["int8_conv"]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=30).stdout.strip()

@@ -307,7 +307,8 @@ def test_int8_inference_view_folded(setup):
     shim = tq.Int8Inference(model, torch.from_numpy(setup["calib"]))
     got = shim.apply(images, bb, pos)
     with torch.no_grad():
-        want = tq.twoview_int8_forward(model, shim.qparams, shim.act_scales, images, bb, pos)
+        want = tq.twoview_int8_forward(model, shim.qparams[0], shim.act_scales[0], images, bb,
+                                       pos)
     torch.testing.assert_close(got.pose, want.pose, rtol=0, atol=0)
     torch.testing.assert_close(shim._features(images[:, 1]),
                                shim._features(images)[:, 1], rtol=0, atol=0)

@@ -17,7 +17,8 @@ from airpose_tpu_torch.data import batch_slice
 from airpose_tpu_torch.entry import entry
 from airpose_tpu_torch.ops import _build
 from airpose_tpu_torch.perception import bench_inputs, build_perception
-from airpose_tpu_torch.train import make_twoview_step_fns
+from airpose_tpu_torch.models import family_init_args, mean_init_state
+from airpose_tpu_torch.train import make_singleview_step_fns, make_twoview_step_fns
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "airpose_tpu_torch"
@@ -64,7 +65,9 @@ def test_entry_points_raise_without_cuda():
         pytest.skip("a CUDA device is present: the default device is valid")
     for fn in (resolve_device, build_perception, entry, lambda: bench_inputs(2),
                lambda: resolve_device("cuda"), lambda: batch_slice({}, 0, 1),
-               lambda: make_twoview_step_fns(None, None, TrainConfig(), None)):
+               lambda: make_twoview_step_fns(None, None, TrainConfig(), None),
+               lambda: make_singleview_step_fns(None, None, TrainConfig(), None, "hmr"),
+               lambda: family_init_args("hmr"), mean_init_state):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn()
     assert resolve_device("cpu") == torch.device("cpu")
