@@ -85,11 +85,17 @@ def make_optimizer(lr: float, train_reg_only: bool = False) -> AMSGrad:
     return AMSGrad(lr, trainable=lambda name: name.split(".")[0] in REG_ONLY_MODULES)
 
 
+def model_variables(model: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{"params", "batch_stats"}`` of ``model``: its own parameters and
+    BatchNorm running statistics by name (not copies)."""
+    return {"params": dict(model.named_parameters()),
+            "batch_stats": {n: b for n, b in model.named_buffers() if n.rsplit(".", 1)[-1]
+                            in ("running_mean", "running_var", "num_batches_tracked")}}
+
+
 def create_train_state(model: nn.Module, lr: float, train_reg_only: bool = False):
     """(TrainState over ``model``'s own tensors, optimizer)."""
-    params = dict(model.named_parameters())
-    batch_stats = {n: b for n, b in model.named_buffers() if n.rsplit(".", 1)[-1]
-                   in ("running_mean", "running_var", "num_batches_tracked")}
+    variables = model_variables(model)
     tx = make_optimizer(lr, train_reg_only)
-    return TrainState(step=0, params=params, batch_stats=batch_stats,
-                      opt_state=tx.init(params)), tx
+    return TrainState(step=0, params=variables["params"], batch_stats=variables["batch_stats"],
+                      opt_state=tx.init(variables["params"])), tx

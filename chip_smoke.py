@@ -53,18 +53,45 @@ Phases, each of which exits non-zero on failure:
      step; the per-drone model behind Int8Inference (104 int8 conv launches,
      each trunk's features equal to its plain version's), and its staged
      serving (AirPoseTwoViewSepView.regress_step, 3 rounds a view) against
-     its fused forward.
+     its fused forward;
+ 10. the trainer CLI and what it runs, fixtures under a temporary directory
+     removed afterwards: airpose_tpu_torch.train.trainer.main in-process on
+     copenet_twoview, synthetic://64 (51 train, 13 val) at full width (a
+     10,475-vertex SMPLX_NEUTRAL.npz written from synthetic_smplx_params()),
+     B = 30 of 224², 20 steps, val every 10: checkpoints and metrics written,
+     the logged loss finite and falling, the summary grid rendered,
+     skinning launched once a train step (60 bodies), once a val batch (26)
+     and once a summary grid (2), counted in the call each launch ran in,
+     and nothing else of the kernels; then `python -m
+     airpose_tpu_torch.train.trainer` as two subprocesses at once, one
+     resuming at step 20 and ending at 30, one resuming in a copy of the
+     run's directory with --time_to_run 0 and exiting 3 after saving last
+     at step 21; finish_batch on the card against the CPU at B = 30 of 672²
+     context (context_scale 1 and 2), and a 4-worker Prefetcher's batches
+     against the main thread's; an AerialPeople fixture of 300 records:
+     precompute_canonical_gt with the kernel (2 launches: 256 + 44) against
+     the plain skinning, then host_batch(decode_images=False) →
+     finish_batch → one make_twoview_step_fns step; the CLI's last.ckpt
+     loaded with strict=True, its eval forward equal to the in-memory
+     model's.
 Prints the kernels as one JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA device is available.
 """
 
 import contextlib
+import io
 import json
+import os
+import pickle
 import subprocess
 import sys
+import shutil
+import tempfile
+import threading
 import time
 from functools import partial
+from unittest import mock
 
 import numpy as np
 import torch
@@ -132,6 +159,17 @@ EVAL_REL = 1e-5
 INT8_SEP_REL_L2 = 1e-5
 # staged _sep vs fused: the same trunks and cores on the same inputs.
 STAGED_ATOL = 1e-5
+# Phase 10. finish_batch on the card against the CPU: images within 1e-5
+# (tests/test_torch_data.py's bound against JAX's resample), the bb and the
+# crop-frame keypoints within 1e-6 relative (f32 elementwise, exact in
+# exact arithmetic; only the resample's sums differ in order).
+PIPE_IMG_ATOL, PIPE_GEOM_REL = 1e-5, 1e-6
+# The readers' canonical GT with the skinning kernel against the plain
+# skinning: f32 sums over 55 joints in another order.
+CANON_REL = 1e-5
+CLI_STEPS, CLI_VAL_EVERY, CLI_SAMPLES = 20, 10, 64
+CLI_BATCH, CLI_IMG = 30, 224   # the trainer's defaults: B = 30 frames of 224²
+AERIAL_RECORDS = 300  # one chunk of 256 bodies and a tail of 44
 
 
 def log(msg):
@@ -963,6 +1001,439 @@ def phase_sep_serving(dev, batch):
             "staged_max_abs_diff": diff}
 
 
+class _Lines(io.TextIOBase):
+    """Standard output of the in-process CLI run: echoed, and kept line by
+    line with the host clock at which each line was written."""
+
+    def __init__(self, echo):
+        self.echo, self.lines, self._buf = echo, [], ""
+
+    def write(self, text):
+        self.echo.write(text)
+        self._buf += text
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(text)
+
+    def flush(self):
+        self.echo.flush()
+
+
+def write_smplx_npz(directory):
+    """synthetic_smplx_params() (10,475 vertices) as a SMPLX_NEUTRAL.npz in
+    the released layout: posedirs (V, 3, 486), the kintree table, the mean
+    hands as axis-angle, the landmarks as extra faces."""
+    from airpose_tpu_torch.bodymodel import synthetic_smplx_params
+    from airpose_tpu_torch.geometry import rotmat_to_aa
+
+    p = synthetic_smplx_params()
+    V, J = p.lbs_weights.shape
+    faces = np.concatenate([p.faces, p.lmk_vert_ids.numpy()])
+    hands = rotmat_to_aa(p.hand_pose).numpy()
+    np.savez(os.path.join(directory, "SMPLX_NEUTRAL.npz"),
+             v_template=p.v_template.numpy(), shapedirs=p.shape_dirs.numpy(),
+             posedirs=p.pose_dirs.numpy().T.reshape(V, 3, -1),
+             J_regressor=p.j_regressor.numpy(), weights=p.lbs_weights.numpy(),
+             kintree_table=np.stack([np.asarray(p.parents), np.arange(J)]), f=faces,
+             hands_meanl=hands[:15].ravel(), hands_meanr=hands[15:].ravel(),
+             lmk_faces_idx=np.arange(len(p.faces), len(faces)),
+             lmk_bary_coords=p.lmk_bary.numpy())
+
+
+def kernel_counts():
+    from airpose_tpu_torch.bodymodel import cuda_lbs
+    from airpose_tpu_torch.ops import fused_bottleneck as fb
+    from airpose_tpu_torch.ops import int8_conv as ic
+
+    return {"lbs_skinning": cuda_lbs.launches, "fused_stage1": fb.launches,
+            "int8_conv": ic.launches}
+
+
+def reset_kernel_counts():
+    from airpose_tpu_torch.bodymodel import cuda_lbs
+    from airpose_tpu_torch.ops import fused_bottleneck as fb
+    from airpose_tpu_torch.ops import int8_conv as ic
+
+    cuda_lbs.launches = fb.launches = ic.launches = 0
+
+
+def phase_cli(dev, tmp, card, phase8_step_ms):
+    """Phase 10, the CLI: trainer.main in-process, then the module's entry
+    point as a subprocess, resuming and then preempted."""
+    from airpose_tpu_torch.bodymodel import cuda_lbs
+    from airpose_tpu_torch.models import AirPoseTwoView
+    from airpose_tpu_torch.train import checkpoint as ckpt_mod
+    from airpose_tpu_torch.train import loop, trainer
+
+    write_smplx_npz(tmp)
+    logs = os.path.join(tmp, "logs")
+    args = ["--name", "smoke", "--version", "0", "--model", "copenet_twoview",
+            "--datapath", f"synthetic://{CLI_SAMPLES}", "--smplx_model_dir", tmp,
+            "--log_dir", logs, "--batch_size", str(CLI_BATCH), "--val_batch_size",
+            str(CLI_BATCH), "--img_res", str(CLI_IMG), "--val_every", str(CLI_VAL_EVERY)]
+    run_dir = os.path.join(logs, "smoke", "version_0")
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+
+    # the bodies of each skinning launch and the call it ran in (set-up, a
+    # train step, a val batch, a summary grid), the calls of each, and the
+    # states the trainer saves (the names trainer.main calls are wrapped here only)
+    bodies, where, calls = [], [], {"train": 0, "val": 0, "grid": 0}
+    saved, save_s, summary_s = [], [], []
+    inside = ["set-up"]
+    launch, save = cuda_lbs._launch, ckpt_mod.CheckpointManager.save
+    summary, step_fns = trainer._twoview_summary, loop.make_twoview_step_fns
+
+    def counted_launch(w, a, p):
+        bodies.append(a.shape[0])
+        where.append(inside[0])
+        return launch(w, a, p)
+
+    def within(name, fn):
+        def call(*a):
+            inside[0] = name
+            calls[name] += 1
+            try:
+                return fn(*a)
+            finally:
+                inside[0] = "other"
+        return call
+
+    def tagged_step_fns(*a, **kw):
+        train_step, eval_step = step_fns(*a, **kw)
+        return within("train", train_step), within("val", eval_step)
+
+    def kept_save(self, state, name="last"):
+        saved.append(state)
+        t = time.perf_counter()
+        save(self, state, name)
+        save_s.append(time.perf_counter() - t)
+
+    def timed_summary(*a):
+        t = time.perf_counter()
+        try:
+            return within("grid", summary)(*a)
+        finally:
+            summary_s.append(time.perf_counter() - t)
+
+    out = _Lines(sys.stdout)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(cuda_lbs, "_launch", counted_launch), \
+            mock.patch.object(ckpt_mod.CheckpointManager, "save", kept_save), \
+            mock.patch.object(trainer, "_twoview_summary", timed_summary), \
+            mock.patch.object(loop, "make_twoview_step_fns", tagged_step_fns), \
+            contextlib.redirect_stdout(out):
+        trainer.main(args + ["--max_steps", str(CLI_STEPS)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    lines = [line for _, line in out.lines]
+    first_s = out.lines[0][0] - t0
+    log(f"CLI in-process: returned after {run_s:.1f} s; kernel launches {counts}; "
+        f"{first_s:.1f} s to the first logged step (set-up and one step), "
+        f"{len(save_s)} checkpoint saves {sum(save_s):.1f} s, {len(summary_s)} summary grids "
+        f"{sum(summary_s):.1f} s [{card}]")
+
+    # the val split as trainer.py cuts it (at B = 30: one tail batch of 13
+    # frames, 26 bodies); the summary grid renders after the first val batch
+    n_train = int(CLI_SAMPLES * 0.8)
+    val = [2 * CLI_BATCH] * len(range(n_train, CLI_SAMPLES - CLI_BATCH + 1, CLI_BATCH))
+    if CLI_SAMPLES - n_train < CLI_BATCH:
+        val.append(2 * (CLI_SAMPLES - n_train))
+    want = ([CLI_SAMPLES]
+            + ([2 * CLI_BATCH] * CLI_VAL_EVERY + val[:1] + [2] + val[1:])
+            * (CLI_STEPS // CLI_VAL_EVERY))
+    check(bodies == want, f"CLI skinning launches by bodies {bodies}, expected {want} "
+          "(dataset; 60 a train step; the val batch; the summary grid)")
+    check(counts == {"lbs_skinning": len(want), "fused_stage1": 0, "int8_conv": 0},
+          f"CLI kernel launches {counts}")
+    files = sorted(os.listdir(ckpt_dir))
+    check(files == ["best.ckpt", "best_val.json", "last.ckpt"], f"checkpoints {files}")
+    metrics = [f for f in os.listdir(run_dir)
+               if f == "metrics.jsonl" or f.startswith("events.out.tfevents")]
+    check(bool(metrics), f"no metrics file in {os.listdir(run_dir)}")
+    train_loss = {int(ln.split()[1]): float(ln.split()[3]) for ln in lines
+                  if ln.startswith("step ") and " loss " in ln}
+    val_loss = {int(ln.split()[1]): float(ln.split()[3]) for ln in lines
+                if ln.startswith("step ") and " val_loss " in ln}
+    skipped = [ln for ln in lines if ln.startswith("summary render skipped")]
+    log(f"CLI losses: train {train_loss}, val {val_loss}; metrics file {metrics[0]}; "
+        f"summary grids: {skipped or 'rendered'} [{card}]")
+    check(not skipped, f"CLI summary grid not rendered: {skipped}")
+    # skinning launches a call of each kind, counted in the call it ran in
+    per_call = {name: where.count(name) / n for name, n in calls.items() if n}
+    per_call["set-up"] = where.count("set-up")
+    log(f"CLI skinning launches a call: {per_call} over {calls} calls and the set-up; "
+        f"{where.count('other')} elsewhere [{card}]")
+    passes = CLI_STEPS // CLI_VAL_EVERY
+    check(calls == {"train": CLI_STEPS, "val": len(val) * passes, "grid": passes},
+          f"CLI calls {calls}")
+    check(per_call == {"train": 1, "val": 1, "grid": 1, "set-up": 1} and "other" not in where,
+          f"CLI skinning launches a call {per_call}, elsewhere {where.count('other')}")
+    check(sorted(train_loss) == [1, 10, 20] and sorted(val_loss) == [10, 20],
+          f"CLI logged steps {sorted(train_loss)}, val {sorted(val_loss)}")
+    check(all(np.isfinite(v) for v in (*train_loss.values(), *val_loss.values())),
+          "non-finite CLI loss")
+    check(train_loss[20] < train_loss[1], f"CLI training loss did not fall: {train_loss}")
+    stamp = {int(ln.split()[1]): t for t, ln in out.lines
+             if ln.startswith("step ") and " loss " in ln}
+    cli_step_ms = (stamp[10] - stamp[1]) / 9 * 1e3
+    log(f"CLI train step at B={CLI_BATCH} (steps 2-10, wall time between the trainer's synchronising "
+        f"log points): {cli_step_ms:.3f} ms, phase 8's step {phase8_step_ms:.3f} ms: the "
+        f"CLI's own overhead {cli_step_ms - phase8_step_ms:.3f} ms a step [{card}]")
+
+    # the in-memory model against last.ckpt loaded with strict=True
+    state = saved[-1]
+    blob = torch.load(os.path.join(ckpt_dir, "last.ckpt"), map_location="cpu",
+                      weights_only=True)
+    check(blob["global_step"] == CLI_STEPS == state.step, f"last.ckpt at {blob['global_step']}")
+    g = torch.Generator(device=dev).manual_seed(5)
+    inputs = (torch.randn(8, 2, CLI_IMG, CLI_IMG, 3, device=dev, generator=g),
+              torch.randn(8, 2, 3, device=dev, generator=g) * 0.1,
+              torch.full((8, 2, 3), 0.5, device=dev))
+    loaded = AirPoseTwoView(dtype=torch.bfloat16, seed=1).to(dev)
+    ckpt_mod.load_reference_state_dict(loaded, blob, "copenet_twoview")
+    memory = AirPoseTwoView(dtype=torch.bfloat16, seed=2).to(dev)
+    with torch.no_grad():
+        got = loaded(*inputs)
+        want = torch.func.functional_call(memory, {**state.params, **state.batch_stats}, inputs)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"last.ckpt (step {blob['global_step']}) loaded with strict=True: eval forward "
+        f"{'equal to' if same else 'DIFFERS from'} the in-memory model's "
+        f"(max |diff| {max((a - b).abs().max().item() for a, b in zip(got, want)):.3e}) [{card}]")
+    check(same, "the checkpoint's eval forward differs from the in-memory model's")
+    del saved, state, loaded, memory, got, want
+    torch.cuda.empty_cache()
+
+    # the entry point a user calls, twice and at once: resuming at step 20 in
+    # this run's directory, and preempted at once in a copy of it
+    root = os.path.dirname(os.path.abspath(__file__))
+    copy_dir = os.path.join(logs, "smoke", "version_1", "checkpoints")
+    shutil.copytree(ckpt_dir, copy_dir)
+    deadline_args = [a if a != "0" or args[i - 1] != "--version" else "1"
+                     for i, a in enumerate(args)]
+    cases = {"resume": (args + ["--max_steps", "30"], ckpt_dir, 0, 30),
+             "deadline": (deadline_args + ["--max_steps", "40", "--time_to_run", "0"],
+                          copy_dir, 3, 21)}
+    t = time.perf_counter()
+    procs = {}
+    try:
+        for name, (argv, _, _, _) in cases.items():
+            err = tempfile.TemporaryFile("w+")
+            proc = subprocess.Popen([sys.executable, "-m", "airpose_tpu_torch.train.trainer",
+                                     *argv], cwd=root, stdout=subprocess.PIPE, stderr=err,
+                                    text=True)
+            stamped = []
+            reader = threading.Thread(target=lambda p=proc, out=stamped: out.extend(
+                (time.perf_counter() - t, ln.rstrip("\n")) for ln in p.stdout), daemon=True)
+            reader.start()
+            procs[name] = (proc, err, reader, stamped)
+        runs = {}
+        for name, (proc, err, reader, stamped) in procs.items():
+            rc = proc.wait(timeout=300)
+            reader.join(timeout=30)
+            secs = time.perf_counter() - t
+            err.seek(0)
+            argv, run_ckpts, rc_want, step_want = cases[name]
+            step = torch.load(os.path.join(run_ckpts, "last.ckpt"), map_location="cpu",
+                              weights_only=True)["global_step"]
+            start_s, first = next(((s_, ln) for s_, ln in stamped if ln.startswith("step ")),
+                                  (secs, ""))
+            log(f"CLI subprocess ({name}: {' '.join(argv[-4:])}): exit {rc} after {secs:.1f} s "
+                f"({start_s:.1f} s to the first logged step), last.ckpt at step {step}; "
+                f"output: {' | '.join(ln for _, ln in stamped[-4:])} [{card}]")
+            if rc != rc_want:
+                log(err.read()[-3000:])
+            check(rc == rc_want and step == step_want,
+                  f"CLI {name}: exit {rc}, step {step}; expected {rc_want}, {step_want}")
+            check(first.startswith("step 21 loss"), f"CLI {name} did not resume at step 20: "
+                  f"{first!r}")
+            runs[name] = {"exit": rc, "last_step": step, "seconds": secs,
+                          "first_line_s": start_s}
+    finally:
+        for proc, err, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err.close()
+    return {"seconds": run_s, "first_line_s": first_s, "save_s": save_s,
+            "summary_s": summary_s, "skinning_bodies": bodies, "launches": counts,
+            "launches_per_call": per_call,
+            "train_loss": train_loss, "val_loss": val_loss, "step_ms": cli_step_ms,
+            "phase8_step_ms": phase8_step_ms, "subprocess": runs}
+
+
+def pipeline_host_batch(i, context_scale, base):
+    """Host batch i in the readers' layout at B = 30, two views of 672²
+    uint8 context: ``base`` shifted by i, metadata from seed 1000 + i."""
+    rng = np.random.default_rng(1000 + i)
+    B, S = base.shape[0], base.shape[2]
+    ext = rng.uniform(S // 2, S, (B, 2, 2)).astype(np.float32)
+    lo = rng.uniform(0, 0.3, (B, 2, 2)).astype(np.float32) * ext
+    hi = lo + rng.uniform(0.3, 0.6, (B, 2, 2)).astype(np.float32) * ext
+    return {
+        "context": base + np.uint8(i),
+        "context_extent": ext,
+        "context_origin": rng.uniform(0, 800, (B, 2, 2)).astype(np.float32),
+        "context_scale": np.full((B, 2), context_scale, np.float32),
+        "person_box": np.concatenate([lo, hi], -1),
+        "intr": np.tile(np.asarray([[1475.0, 0, 960], [0, 1475.0, 540], [0, 0, 1]],
+                                   np.float32), (B, 2, 1, 1)),
+        "gt_j2d": rng.uniform(0, 1500, (B, 2, 24, 2)).astype(np.float32),
+        "gt_j2d_conf": rng.uniform(0, 1500, (B, 2, 25, 3)).astype(np.float32),
+    }
+
+
+def phase_pipeline(dev, card):
+    """Phase 10, the input pipeline: finish_batch on the card against the
+    CPU, then a 4-worker Prefetcher against the main thread."""
+    from airpose_tpu_torch.data.pipeline import Prefetcher, crop_resize_pad, finish_batch
+
+    base = np.random.default_rng(7).integers(0, 256, (30, 2, 672, 672, 3)).astype(np.uint8)
+    out = {}
+    for cs in (1.0, 2.0):
+        hb = pipeline_host_batch(int(cs), cs, base)
+        got = finish_batch(hb, None, deterministic=True, device=dev)
+        want = finish_batch(hb, None, deterministic=True, device="cpu")
+        img = (got["images"].cpu() - want["images"]).abs().max().item()
+        rel = {k: ((got[k].cpu() - want[k]).abs().max() / want[k].abs().max()).item()
+               for k in ("bb", "gt_j2d_crop", "gt_j2d_crop_conf")}
+        log(f"finish_batch card vs CPU, B=30 of 672², context_scale {cs:g}: images max abs "
+            f"{img:.3e} (bound {PIPE_IMG_ATOL}), relative {rel} (bound {PIPE_GEOM_REL}) [{card}]")
+        check(set(got) == set(want), f"finish_batch keys {sorted(got)} vs {sorted(want)}")
+        check(img <= PIPE_IMG_ATOL and all(r <= PIPE_GEOM_REL for r in rel.values()),
+              f"finish_batch on the card disagrees with the CPU: {img}, {rel}")
+        out[f"context_scale_{cs:g}"] = {"images_max_abs": img, **rel}
+    batch_ms = wall_ms(lambda: finish_batch(hb, None, deterministic=True, device=dev),
+                       iters=5, warmup=1)
+    ctx = torch.from_numpy(base).to(dev).reshape(60, 672, 672, 3)
+    boxes = got["bb"].new_tensor([[100.0, 80.0, 400.0, 500.0]]).expand(60, 4).contiguous()
+    crop_ms = time_ms(lambda: crop_resize_pad(ctx, boxes))
+    log(f"finish_batch at B=30: {batch_ms:.3f} ms a batch with the 81 MB upload (wall), "
+        f"crop_resize_pad {crop_ms:.3f} ms of device time for 60 crops [{card}]")
+
+    count = {}
+
+    def make_batch(wid):
+        count[wid] = count.get(wid, 0) + 1
+        i = 10 * (wid + 1) + count[wid]
+        b = finish_batch(pipeline_host_batch(i, 2.0, base), None, deterministic=True,
+                         device=dev)
+        b["tag"] = np.asarray([i])
+        return b
+
+    pf = Prefetcher.from_factory(make_batch, num_workers=4, device=dev, host_keys=("tag",))
+    got = [next(pf) for _ in range(8)]
+    pf.close()
+    tags = [int(b["tag"][0]) for b in got]
+    for b in got:
+        want = finish_batch(pipeline_host_batch(int(b["tag"][0]), 2.0, base), None,
+                            deterministic=True, device=dev)
+        check(set(b) - {"tag"} == set(want) and all(torch.equal(b[k], want[k]) for k in want),
+              f"Prefetcher batch {b['tag']} differs from the main thread's")
+    log(f"Prefetcher, 4 workers: batches {tags} from workers "
+        f"{sorted({t // 10 - 1 for t in tags})} equal the main thread's, key for key [{card}]")
+    check(len(set(tags)) == 8, f"Prefetcher tags {tags}")
+    return {**out, "finish_batch_ms": batch_ms, "crop_resize_pad_ms": crop_ms,
+            "prefetcher_tags": tags}
+
+
+def write_aerialpeople(root, n):
+    """An AerialPeople layout of n sample pkls (sample 0 passes the schema
+    check) with empty image files for the path probe: the card has no JPEG
+    decoder, so the windows are filled from a seed."""
+    rng = np.random.default_rng(0)
+    for d in ("dataset", "pkls", "imgs"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    K = np.asarray([[1475.0, 0, 960], [0, 1475.0, 540], [0, 0, 1]], np.float32)
+    files = []
+    for i in range(n):
+        rec = {"smplpose": (rng.normal(size=63) * 0.2).astype(np.float32),
+               "smplshape": (rng.normal(size=10) * 0.3).astype(np.float32),
+               "smplgender": "male", "smplorient_rotmat_wrt_origin": np.eye(3, dtype=np.float32),
+               "smpltrans": np.asarray([0.3, 0.1, 0.2], np.float32),
+               "smpl_joints_wrt_origin": (rng.normal(size=(127, 3)) * 0.4).astype(np.float32),
+               "smpl_vertices_wrt_origin": np.zeros((1, 3), np.float32)}
+        for cam, ang in ((0, 0.2), (1, -0.3)):
+            c, s_ = np.cos(ang), np.sin(ang)
+            R = np.asarray([[c, 0, s_], [0, 1, 0], [-s_, 0, c]], np.float32)
+            rec[f"cam{cam}"] = {"intr": K, "extr": np.concatenate(
+                [R, np.asarray([[0.0], [0.0], [8.0]], np.float32)], 1)}
+            x0, y0 = rng.uniform(700, 1000), rng.uniform(300, 500)
+            rec[f"bb{cam}"] = np.asarray([[x0, y0], [x0 + rng.uniform(100, 250),
+                                                     y0 + rng.uniform(150, 250)]], np.float32)
+            rec[f"im{cam}"] = f"imgs/{i}_{cam}.jpg"
+            open(os.path.join(root, rec[f"im{cam}"]), "wb").close()
+        files.append(os.path.join(root, "pkls", f"{i}.pkl"))
+        with open(files[-1], "wb") as f:
+            pickle.dump(rec, f)
+    for split in ("train", "test"):
+        with open(os.path.join(root, "dataset", f"{split}_pkls.pkl"), "wb") as f:
+            pickle.dump(files, f)
+
+
+def phase_readers(dev, tmp, smplx_params, card):
+    """Phase 10, the readers' device part on an AerialPeople fixture."""
+    from airpose_tpu_torch.bodymodel import cuda_lbs, smplx_forward
+    from airpose_tpu_torch.config import TrainConfig
+    from airpose_tpu_torch.data import AerialPeopleDataset
+    from airpose_tpu_torch.data.pipeline import finish_batch
+    from airpose_tpu_torch.geometry import batch_rodrigues
+    from airpose_tpu_torch.models import AirPoseTwoView
+    from airpose_tpu_torch.train import create_train_state, make_twoview_step_fns
+
+    root = os.path.join(tmp, "aerialpeople")
+    write_aerialpeople(root, AERIAL_RECORDS)
+    ds = AerialPeopleDataset(root, "train")
+    reset_kernel_counts()
+    t = time.perf_counter()
+    cache = ds.precompute_canonical_gt(smplx_params)
+    secs = time.perf_counter() - t
+    counts = kernel_counts()
+    n = AERIAL_RECORDS
+    with torch.no_grad():
+        plain = smplx_forward(
+            smplx_params, torch.from_numpy(cache["betas"]).to(dev),
+            body_pose=batch_rodrigues(torch.from_numpy(cache["pose_aa"]).to(dev).reshape(n, 21, 3)),
+            global_orient=torch.eye(3, device=dev).expand(n, 1, 3, 3), use_kernels=False)
+    rel = {k: (np.abs(cache[k] - getattr(plain, k).cpu().numpy()).max()
+               / np.abs(getattr(plain, k).cpu().numpy()).max()).item()
+           for k in ("vertices", "joints")}
+    chunks = -(-n // 256)
+    log(f"precompute_canonical_gt, {n} bodies in chunks of 256: {secs:.2f} s (pkl reads "
+        f"included), launches {counts}; kernel vs plain skinning, max relative {rel} "
+        f"(bound {CANON_REL}) [{card}]")
+    check(counts == {"lbs_skinning": chunks, "fused_stage1": 0, "int8_conv": 0},
+          f"precompute launches {counts}, expected {chunks} skinning")
+    check(all(r <= CANON_REL for r in rel.values()), f"canonical GT with the kernel: {rel}")
+
+    idx = list(range(CLI_BATCH))
+    hb = ds.host_batch(idx, np.random.default_rng(0), decode_images=False)
+    S = ds.context_size
+    hb["context"] = np.random.default_rng(1).integers(0, 256, hb["context"].shape).astype(np.uint8)
+    hb["context_extent"] = np.minimum(hb["person_box"][..., 2:] + 200.0, S)
+    gt = ds.canonical_gt(idx)
+    hb["gt_vertices"], hb["gt_joints"] = gt["vertices"], gt["joints"]
+    hb["gt_j2d"] = hb["gt_j2d"][:, :, :22]
+    batch = finish_batch(hb, torch.Generator(device=dev).manual_seed(0), out_size=CLI_IMG,
+                         device=dev)
+    cfg = TrainConfig()
+    model = AirPoseTwoView(dtype=torch.bfloat16, seed=0).to(dev)
+    state, tx = create_train_state(model, cfg.lr)
+    train_step, _ = make_twoview_step_fns(model, smplx_params, cfg, tx, device=dev)
+    reset_kernel_counts()
+    state, metrics = train_step(state, batch, torch.Generator(device=dev).manual_seed(1))
+    loss = metrics["loss"].item()
+    step_counts = kernel_counts()
+    log(f"AerialPeople host_batch(decode_images=False) → finish_batch → one train step at "
+        f"B={CLI_BATCH}: loss {loss:.1f}, launches {step_counts} [{card}]")
+    check(np.isfinite(loss) and step_counts["lbs_skinning"] == 1,
+          f"AerialPeople step: loss {loss}, launches {step_counts}")
+    return {"precompute_s": secs, "precompute_launches": counts["lbs_skinning"],
+            "canonical_rel": rel, "step_loss": loss}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1008,6 +1479,18 @@ def main():
     families["sep_serving"] = phase_sep_serving(dev, batch)
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
     log(json.dumps({"families": families}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=30).stdout.strip()
+    card = smi.splitlines()[0]
+    t10 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="airpose_phase10_") as tmp:
+        phase10 = {"cli": phase_cli(dev, tmp, card, train["step_ms"]),
+                   "pipeline": phase_pipeline(dev, card),
+                   "readers": phase_readers(dev, tmp, smplx_params, card)}
+    phase10["seconds"] = time.perf_counter() - t10
+    log(f"phase 10: {phase10['seconds']:.1f} s [{card}]")
+    log(json.dumps({"phase10": phase10}))
     # launches: kernel launches in the main path's run of the chain that uses
     # each kernel (int8_block: its 42 conv launches, beside its 13 block calls)
     launches["int8_conv"] = int8_launches["int8"]["int8_conv"]
@@ -1024,9 +1507,15 @@ def main():
         "twoview_eval_metrics": families["eval_metrics"]["skinning_launches"]}
     next(k for k in kernels if k["name"] == "int8_conv")["phase9_launches"] = {
         "_sep int8 inference": families["sep_serving"]["int8"]["launches"]["int8_conv"]}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=30).stdout.strip()
+    # launches on phase 10's paths: skinning in the CLI run, a CLI train step,
+    # val batch and summary grid and the set-up, as counted in each call, and
+    # in the readers' precompute (once a 256-body chunk)
+    per_call = phase10["cli"]["launches_per_call"]
+    kernels[0]["phase10_launches"] = {
+        "CLI run of 20 steps and 2 val passes": phase10["cli"]["launches"]["lbs_skinning"],
+        "CLI train step": per_call["train"], "CLI val batch": per_call["val"],
+        "CLI summary grid": per_call["grid"], "CLI set-up": per_call["set-up"],
+        "precompute_canonical_gt of 300 bodies": phase10["readers"]["precompute_launches"]}
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,temperature.gpu,"
          "power.draw", "--format=csv"],

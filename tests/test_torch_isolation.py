@@ -40,6 +40,21 @@ def test_import_pulls_in_no_jax():
     assert r.returncode == 0, r.stderr[-2000:]
 
 
+def test_data_and_trainer_import_neither_jax_nor_cv2():
+    """The readers import OpenCV only to decode images and h5py only to read
+    H36M's cameras, so the trainer starts where neither is installed."""
+    code = (
+        "import sys\n"
+        "import airpose_tpu_torch.data, airpose_tpu_torch.train.trainer\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',"
+        " 'h5py', 'airpose_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(PKG)))
 def test_source_imports_no_jax(path):
     for node in ast.walk(ast.parse(path.read_text())):
