@@ -9,20 +9,25 @@ anything of ``airpose_tpu``.
 
 Layer map of the ported slices (the two-view perception chain with its bf16,
 int8 and int8-block trunks, the synthetic training steps of every model
-family, and the eval metrics):
+family, the trainer CLI with its readers, the real-data self-supervised
+fine-tune, and the eval metrics):
   perception.py  the chain of the root bench.py: trunk → IEF → 6D → SMPL-X → projection
   entry.py, bench.py, profile_*.py   entry point, throughput, device-time splits
   train/         the training steps: loop.py (make_twoview_step_fns,
-                 make_singleview_step_fns), state.py (TrainState, optax-equal
-                 AMSGrad), losses.py; flax → torch weight carry of every family
+                 make_singleview_step_fns, the real-data make_real_*_step_fns),
+                 state.py (TrainState, optax-equal AMSGrad), losses.py,
+                 trainer.py (the CLI); flax → torch weight carry of every family
   eval/          MPJPE, PA-MPJPE, MPE (metrics.py)
-  data/          synthetic two-view dataset, joint tables
+  data/          synthetic two-view dataset, the input pipeline, the
+                 readers (AerialPeople, H36M, TotalCapture, mixed, DJI, AirCap),
+                 joint tables
   config.py      TrainConfig and the loss weights
   models/        ResNet-50 trunk (eval and train-mode BatchNorm), IEF regressor,
                  HMR, SingleViewFullCam, MuHMR, AirPoseTwoView, AirPoseTwoViewSep
   ops/           fused layer1 stage, int8 conv and blocks (CUDA kernels), QAT,
                  the nvcc/ctypes builder
-  bodymodel/     SMPL-X forward, LBS, skinning (CUDA kernel, with its backward)
+  bodymodel/     SMPL-X forward, LBS, skinning (CUDA kernel, with its backward),
+                 the VPoser pose prior
   geometry/      rotation conversions, projections and rigid transforms, robustifiers
   csrc/          the CUDA C++ kernel sources (sm_90a)
 

@@ -1,4 +1,4 @@
-"""Constants of the perception chain and the synthetic training step (copy of
+"""Constants of the perception chain and the training steps (copy of
 airpose_tpu/constants.py:9-45)."""
 
 # Synthetic (AerialPeople) camera model.
@@ -6,6 +6,13 @@ FOCAL_LENGTH = (1475.0, 1475.0)
 IMG_SIZE = (1920, 1080)  # (W, H)
 CX = IMG_SIZE[0] / 2.0
 CY = IMG_SIZE[1] / 2.0
+
+# Real (DJI) per-camera intrinsics. The real loss projects with the focal
+# lengths; the principal points of the loss come from the calib yml.
+REAL_FOCAL_LENGTH0 = (1537.0, 1517.0)
+REAL_FOCAL_LENGTH1 = (1361.0, 1378.0)
+REAL_CX0, REAL_CY0 = 1018.0, 577.0
+REAL_CX1, REAL_CY1 = 978.0, 667.0
 
 NUM_ITERS = 3           # IEF iterations
 CROP_SIZE = 224         # network input resolution

@@ -1,4 +1,5 @@
 from .aerialpeople import AerialPeopleDataset
+from .aircap import AircapDataset
 from .h36m import H36MDataset
 from .joints import SMPLX_TO_H36M17
 from .mixed import MixedDataset
@@ -9,11 +10,14 @@ from .pipeline import (
     finish_batch,
     jitter_crop_boxes,
 )
+from .real import CopenetRealDataset
 from .synthetic import batch_slice, make_synthetic_dataset
 from .totalcap import TotalCaptureDataset
 
 __all__ = [
     "AerialPeopleDataset",
+    "AircapDataset",
+    "CopenetRealDataset",
     "H36MDataset",
     "MixedDataset",
     "Prefetcher",

@@ -1,15 +1,20 @@
 """Train and eval steps of the model families (port of
-airpose_tpu/train/loop.py:21-222).
+airpose_tpu/train/loop.py).
 
 ``make_twoview_step_fns`` (the two-view models) and
 ``make_singleview_step_fns`` (hmr, copenet_singleview, muhmr) return
 ``train_step(state, batch, generator) → (state, metrics)`` and
-``eval_step(state, batch) → (metrics, predictions)``.
+``eval_step(state, batch) → (metrics, predictions)``; the self-supervised
+real-data steps ``make_real_twoview_step_fns`` and
+``make_real_singleview_step_fns`` (whose train_step also takes the
+``view``) return the same pair.
 The model is applied with the state's tensors (``torch.func.functional_call``),
 so the state is what the step reads and writes, as in the JAX package:
 the forward, the loss, one backward, then the optimizer, all in place. The
-generator (on the batch's device) draws the dropout masks and, with
-``cfg.smpltrans_noise_sigma``, the noise of the IEF translation init.
+generator (on the batch's device) draws the dropout masks, with
+``cfg.smpltrans_noise_sigma`` the noise of the IEF translation init, and in
+the real losses the VPoser latent sample; eval_step draws that sample from
+a generator seeded 0, as the JAX package uses ``PRNGKey(0)``.
 The train step's parts run inside ``record_function`` spans (forward,
 backward, optimizer) that a profiler reads; without one a span costs a few
 microseconds of host time.
@@ -23,6 +28,7 @@ from torch.profiler import record_function
 
 from .. import resolve_device
 from ..bodymodel.smplx import SMPLXParams
+from ..bodymodel.vposer import VPoserParams
 from ..config import TrainConfig
 from ..geometry.rotations import rot6d_to_rotmat
 from . import losses as L
@@ -72,12 +78,24 @@ def _eval_input_trans(batch: Batch, cfg: TrainConfig) -> torch.Tensor:
     return t * cfg.trans_scale
 
 
+def _pinned_trans(batch: Batch, cfg: TrainConfig, generator=None) -> torch.Tensor:
+    """IEF translation init of the real-data steps, in train and eval:
+    [0, 0, 10], distance-scaled (real batches carry no GT translation)."""
+    images = batch["images"]
+    return torch.tensor([0.0, 0.0, 10.0 * cfg.trans_scale], dtype=images.dtype,
+                        device=images.device).expand(images.shape[0], 2, 3)
+
+
 def _step_fns(model: torch.nn.Module, cfg: TrainConfig, tx: AMSGrad, dev: torch.device,
-              inputs, loss_from_out, predictions):
+              inputs, loss_from_out, predictions,
+              init_trans=(_input_trans, _eval_input_trans)):
     """(train_step, eval_step) of one family: ``inputs(batch, in_trans)``
-    gives the model's positional arguments, ``loss_from_out(out, batch)``
-    its loss and ``predictions(out)`` what eval_step returns beside the
-    metrics."""
+    gives the model's positional arguments, ``loss_from_out(out, batch,
+    generator)`` its loss and ``predictions(out)`` what eval_step returns
+    beside the metrics; ``init_trans`` is the IEF translation init of the
+    train step, ``(batch, cfg, generator)``, and of eval_step,
+    ``(batch, cfg)``."""
+    train_trans, eval_trans = init_trans
 
     def forward(state: TrainState, batch: Batch, in_trans, train: bool, generator):
         tensors = {**_maybe_qat(state.params, cfg), **state.batch_stats}
@@ -92,9 +110,9 @@ def _step_fns(model: torch.nn.Module, cfg: TrainConfig, tx: AMSGrad, dev: torch.
     def train_step(state: TrainState, batch: Batch, generator: torch.Generator):
         check_device(batch)
         with record_function("forward"):
-            in_trans = _input_trans(batch, cfg, generator)
+            in_trans = train_trans(batch, cfg, generator)
             out = forward(state, batch, in_trans, True, generator)
-            total, metrics = loss_from_out(out, batch)
+            total, metrics = loss_from_out(out, batch, generator)
         names = list(state.opt_state["mu"])
         with record_function("backward"):
             grads = torch.autograd.grad(total, [state.params[n] for n in names])
@@ -106,8 +124,8 @@ def _step_fns(model: torch.nn.Module, cfg: TrainConfig, tx: AMSGrad, dev: torch.
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
         check_device(batch)
-        out = forward(state, batch, _eval_input_trans(batch, cfg), False, None)
-        _, metrics = loss_from_out(out, batch)
+        out = forward(state, batch, eval_trans(batch, cfg), False, None)
+        _, metrics = loss_from_out(out, batch, torch.Generator(device=dev).manual_seed(0))
         return metrics, predictions(out)
 
     return train_step, eval_step
@@ -134,8 +152,8 @@ def make_twoview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
 
     return _step_fns(
         model, cfg, tx, dev, lambda batch, in_trans: (batch["images"], batch["bb"], in_trans),
-        lambda out, batch: loss(out.pose, out.betas, batch, smplx_params, cfg.loss,
-                                cfg.trans_scale),
+        lambda out, batch, generator: loss(out.pose, out.betas, batch, smplx_params,
+                                           cfg.loss, cfg.trans_scale),
         predictions)
 
 
@@ -162,7 +180,7 @@ def make_singleview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
     if family not in _SINGLEVIEW_INPUTS:
         raise ValueError(f"not a single-view family: {family}")
 
-    def loss_from_out(out, batch):
+    def loss_from_out(out, batch, generator):
         if family == "copenet_singleview":
             return L.singleview_loss(out.pose, out.betas, batch, smplx_params, cfg.loss,
                                      cfg.trans_scale, vertex_mask=vertex_mask,
@@ -173,3 +191,59 @@ def make_singleview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
 
     return _step_fns(model, cfg, tx, dev, _SINGLEVIEW_INPUTS[family], loss_from_out,
                      lambda out: out)
+
+
+def make_real_twoview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
+                               vposer_params: VPoserParams, cfg: TrainConfig, tx: AMSGrad,
+                               use_kernels: bool = True, device=None):
+    """(train_step, eval_step) of the self-supervised fine-tune on real
+    captures for AirPoseTwoView or AirPoseTwoViewSep: the IEF translation
+    init pinned to [0, 0, 10], ``real_twoview_loss`` (2D keypoints and the
+    VPoser prior; ``vposer_params`` on ``device``). ``--train_reg_only`` is
+    in ``tx``. eval_step returns the model's FullCamOutput beside the
+    metrics. The steps run on ``device`` as make_twoview_step_fns's do."""
+    dev = resolve_device(device)
+
+    def loss_from_out(out, batch, generator):
+        return L.real_twoview_loss(out.pose, out.betas, batch, smplx_params, vposer_params,
+                                   cfg.real_loss, generator, cfg.trans_scale,
+                                   use_kernels=use_kernels)
+
+    return _step_fns(model, cfg, tx, dev,
+                     lambda batch, in_trans: (batch["images"], batch["bb"], in_trans),
+                     loss_from_out, lambda out: out, init_trans=(_pinned_trans, _pinned_trans))
+
+
+REAL_SINGLEVIEW_FAMILIES = ("hmr_camswap_difffl", "spin")
+
+
+def make_real_singleview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
+                                  vposer_params: VPoserParams, cfg: TrainConfig, tx: AMSGrad,
+                                  family: str = "hmr_camswap_difffl",
+                                  use_kernels: bool = True, device=None):
+    """(train_step, eval_step) of the real-data single-view fine-tune of the
+    HMR model, for the 'hmr_camswap_difffl' variant (the real trainer's
+    ``--model hmr``, which alternates the view from step to step) and the
+    'spin' baseline (view 0): ``train_step(state, batch, generator, view=0)``
+    trains on ``view`` of the two-view batch with ``real_singleview_loss``;
+    eval_step scores view 0 and returns the model's WeakCamOutput. The
+    steps run on ``device`` as make_twoview_step_fns's do."""
+    dev = resolve_device(device)
+    if family not in REAL_SINGLEVIEW_FAMILIES:
+        raise ValueError(f"not a real single-view family: {family}")
+
+    def view_steps(view):
+        def loss_from_out(out, batch, generator):
+            return L.real_singleview_loss(out.pose6d, out.betas, out.cam, batch, smplx_params,
+                                          vposer_params, cfg.real_loss, generator, view=view,
+                                          use_kernels=use_kernels)
+
+        return _step_fns(model, cfg, tx, dev, lambda batch, in_trans: (batch["images"][:, view],),
+                         loss_from_out, lambda out: out, init_trans=(_pinned_trans, _pinned_trans))
+
+    steps = [view_steps(0), view_steps(1)]
+
+    def train_step(state: TrainState, batch: Batch, generator: torch.Generator, view: int = 0):
+        return steps[view][0](state, batch, generator)
+
+    return train_step, steps[0][1]

@@ -1,8 +1,10 @@
-"""Supervised losses of the model families (port of airpose_tpu/train/losses.py).
+"""Losses of the model families (port of airpose_tpu/train/losses.py).
 
 Each loss is a pure function of the predictions, a batch dict of tensors in
 the canonical layout (data/synthetic.py) and the SMPL-X model, term for
-term as the JAX package's, with the weights of ``config.LossWeights``. Both
+term as the JAX package's, with the weights of ``config.LossWeights``; the
+self-supervised real-data losses take ``config.RealLossWeights``, the
+VPoser prior and a generator for its latent sample. Both
 views' SMPL-X forwards run as one folded call, skinned by the CUDA kernel on
 the card (differentiable, bodymodel/cuda_lbs.py).
 """
@@ -13,9 +15,10 @@ import torch
 
 from .. import constants as C
 from ..bodymodel.smplx import SMPLXParams, smplx_forward
-from ..config import LossWeights
+from ..bodymodel.vposer import VPoserParams, vposer_encode, vposer_rsample
+from ..config import LossWeights, RealLossWeights
 from ..data.joints import SMPLX_TO_H36M17
-from ..geometry.rotations import rot6d_to_rotmat
+from ..geometry.rotations import rot6d_to_rotmat, rotmat_to_aa
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -42,6 +45,17 @@ def _limb_weight_rotmats(sq: torch.Tensor, w: float) -> torch.Tensor:
 
 def _sq(a, b):
     return (a - b) ** 2
+
+
+def _row_mean(t: torch.Tensor, rw: Optional[torch.Tensor]) -> torch.Tensor:
+    """Batch mean of ``t`` (batch on the leading axis). With ``rw=None`` this
+    is ``t.mean()``; with a (B,) row weight it is the weighted mean of the
+    per-row means, so an eval batch padded to a static size with 1/0 weights
+    reports the loss of its valid rows only."""
+    if rw is None:
+        return t.mean()
+    m = t.reshape(t.shape[0], -1).mean(dim=1)
+    return (m * rw).sum() / rw.sum().clamp(min=1.0)
 
 
 def _identity_roots(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -340,5 +354,100 @@ def muhmr_loss(pred_pose6d: torch.Tensor, pred_betas: torch.Tensor, pred_cam: to
         "loss_regr_shape": loss_shape,
         "loss_rootrot": loss_rootrot,
         "loss_regr_pose": loss_pose,
+        "loss_regul_betas": loss_betas,
+    }
+
+
+def real_twoview_loss(pred_pose: torch.Tensor, pred_betas: torch.Tensor,
+                      batch: Dict[str, torch.Tensor], smplx_params: SMPLXParams,
+                      vposer_params: VPoserParams, w: RealLossWeights,
+                      generator: Optional[torch.Generator],
+                      trans_scale: float = C.TRANS_SCALE,
+                      use_kernels: bool = True) -> Tuple[torch.Tensor, Metrics]:
+    """Self-supervised two-view fine-tune loss on real captures:
+    confidence-weighted 2D reprojection with limb weights, the VPoser
+    latent L2, cross-view pose consistency, β regularizers and the
+    exp(−t_z)² barrier. pred_pose (B, 2, 135), pred_betas (B, 2, 10);
+    ``batch["gt_j2d_conf"]`` (B, 2, 22, 3) is [u, v, confidence] and
+    ``batch["focal"]`` the per-view (2, 2) focal lengths; an optional
+    ``batch["row_weight"]`` (B,) weights the rows of every term. ``generator``
+    draws the latent sample; ``use_kernels=False`` skins with the plain
+    version on any device."""
+    B = pred_pose.shape[0]
+    trans = pred_pose[..., :3] / trans_scale
+    rotmat = rot6d_to_rotmat(pred_pose[..., 3:].reshape(B, 2, 22, 6))
+    _, joints = canonical_smplx_two_view(smplx_params, pred_betas, rotmat, use_kernels)
+    _, j2d = cam_frame_and_project(rotmat[:, :, 0], trans, joints, batch["intr"],
+                                   batch.get("focal", C.FOCAL_LENGTH))
+
+    rw = batch.get("row_weight")  # (B,) 1/0 mask of a padded eval batch; None in training
+    kp = batch["gt_j2d_conf"]
+    e2d = _sq(j2d[..., :22, :], kp[..., :22, :2]) * kp[..., :22, 2:]
+    e2d = _limb_weight_joints(e2d, w.limbs2d)
+    # the two views' weighted errors are summed before the mean: the term is
+    # mean(view 0) + mean(view 1), not a mean over the views
+    loss_kp2d = _row_mean(e2d.sum(dim=1), rw)
+
+    # VPoser prior on the predicted body pose, both views folded; the two
+    # views' terms summed
+    pose_aa = rotmat_to_aa(rotmat[:, :, 1:]).reshape(B * 2, 63)
+    z = vposer_rsample(*vposer_encode(vposer_params, pose_aa), generator)
+    loss_vposer = _row_mean((z ** 2).reshape(B, 2, -1), rw) * 2.0
+
+    loss_pose = _row_mean(_sq(rotmat[:, 0, 1:], rotmat[:, 1, 1:]), rw)
+    loss_betas = (_row_mean(pred_betas[:, 0] ** 2, rw) + _row_mean(pred_betas[:, 1] ** 2, rw)
+                  + _row_mean(_sq(pred_betas[:, 0], pred_betas[:, 1]), rw))
+    barrier = (_row_mean(torch.exp(-trans[:, 0, 2]) ** 2, rw)
+               + _row_mean(torch.exp(-trans[:, 1, 2]) ** 2, rw))
+
+    total = w.total_scale * (w.keypoint2d * loss_kp2d + w.beta * loss_betas
+                             + w.vposer * loss_vposer + w.pose * loss_pose + barrier)
+    return total, {
+        "loss": total,
+        "loss_keypoints": loss_kp2d,
+        "loss_regul_vposer": loss_vposer,
+        "loss_regr_pose": loss_pose,
+        "loss_regul_betas": loss_betas,
+    }
+
+
+def real_singleview_loss(pred_pose6d: torch.Tensor, pred_betas: torch.Tensor,
+                         pred_cam: torch.Tensor, batch: Dict[str, torch.Tensor],
+                         smplx_params: SMPLXParams, vposer_params: VPoserParams,
+                         w: RealLossWeights, generator: Optional[torch.Generator],
+                         focal=(5000.0, 5000.0), img_res: int = C.CROP_SIZE, view: int = 0,
+                         use_kernels: bool = True) -> Tuple[torch.Tensor, Metrics]:
+    """Self-supervised single-view loss of the real-data hmr variants
+    (``hmr_camswap_difffl``, ``spin``): confidence-weighted crop-frame 2D
+    keypoints of ``view`` through the weak-perspective camera at crop focal
+    5000, the VPoser latent L2, β L2 and the camera-depth barrier
+    exp(−t_z)². pred_pose6d (B, 132), pred_betas (B, 10), pred_cam (B, 3);
+    ``batch["gt_j2d_crop_conf"]`` (B, V, 24, 3) is crop-frame
+    [u, v, confidence]; an optional ``batch["row_weight"]`` (B,) weights the
+    rows of every term."""
+    B = pred_pose6d.shape[0]
+    rotmat = rot6d_to_rotmat(pred_pose6d.reshape(B, 22, 6))
+    out = smplx_forward(smplx_params, pred_betas, body_pose=rotmat[:, 1:],
+                        global_orient=_identity_roots(B, pred_betas), use_kernels=use_kernels)
+    cam_z = 2 * focal[0] / (img_res * pred_cam[:, 0] + 1e-9)
+    j2d = _weak_cam_project(rotmat[:, 0], pred_cam, out.joints, focal, img_res)
+
+    rw = batch.get("row_weight")  # (B,) 1/0 mask of a padded eval batch; None in training
+    kp = batch["gt_j2d_crop_conf"][:, view]
+    e2d = _sq(j2d[:, :22], kp[:, :22, :2]) * kp[:, :22, 2:]
+    loss_kp2d = _row_mean(_limb_weight_joints(e2d, w.limbs2d), rw)
+
+    pose_aa = rotmat_to_aa(rotmat[:, 1:]).reshape(B, 63)
+    z = vposer_rsample(*vposer_encode(vposer_params, pose_aa), generator)
+    loss_vposer = _row_mean(z ** 2, rw)
+    loss_betas = _row_mean(pred_betas ** 2, rw)
+    barrier = _row_mean(torch.exp(-cam_z) ** 2, rw)
+
+    total = w.total_scale * (w.keypoint2d * loss_kp2d + w.beta * loss_betas
+                             + w.vposer * loss_vposer + barrier)
+    return total, {
+        "loss": total,
+        "loss_keypoints": loss_kp2d,
+        "loss_regul_vposer": loss_vposer,
         "loss_regul_betas": loss_betas,
     }

@@ -24,13 +24,18 @@ Datapath forms:
                        batch from one source, its loss dispatched per
                        batch (the behavior the reference's MixedDataset
                        declared but never had)
+  real:///path/to/capture   the two-drone DJI capture layout
+                       (data/real.py): the self-supervised fine-tune on
+                       OpenPose/AlphaPose 2D keypoints and the VPoser prior
+                       (--vposer_ckpt; --train_frames, --test_frames);
+                       copenet_twoview[_sep], or hmr alternating the view
+                       from step to step
 
-Flags and defaults are the JAX trainer's. It differs from it in three
+Flags and defaults are the JAX trainer's. It differs from it in two
 places: ``--platform {cpu,cuda}`` (the card by default; raises without
-CUDA), ``real://`` is refused (the self-supervised fine-tune needs VPoser
-and the real losses, not ported yet), and there is no device mesh (one
-card). Checkpoints are ``best.ckpt``/``last.ckpt`` in the reference
-Lightning layout with auto-resume (train.checkpoint.CheckpointManager);
+CUDA) and there is no device mesh (one card). Checkpoints are
+``best.ckpt``/``last.ckpt`` in the reference Lightning layout with
+auto-resume (train.checkpoint.CheckpointManager);
 deadline-based preemption exits with code 3 (--time_to_run, same scheduler
 contract as the cluster scripts); TensorBoard scalars per loss term.
 """
@@ -249,11 +254,19 @@ def _summary_grid(smplx_params, batch, rotmat2, betas2, trans2):
     return np.concatenate(rows, axis=0).astype(np.float32)
 
 
-def _twoview_summary(smplx_params, batch, preds):
-    """Extract sample-0 per-view (rotmat, betas, trans) from eval_step's
-    predictions and render the grid."""
-    rotmat, betas, trans = (preds[k][0].float().cpu().numpy()
-                            for k in ("pred_rotmat", "pred_betas", "pred_trans"))
+def _twoview_summary(smplx_params, batch, preds, real: bool, trans_scale):
+    """Extract sample-0 per-view (rotmat, betas, trans) from either form of
+    eval_step's predictions and render the grid."""
+    from ..geometry.rotations import rot6d_to_rotmat
+
+    if real:  # FullCamOutput: pose (B, 2, 135) [scaled trans | 6D×22]
+        pose = preds.pose[0].float()
+        betas = preds.betas[0].float().cpu().numpy()
+        trans = (pose[:, :3] / trans_scale).cpu().numpy()
+        rotmat = rot6d_to_rotmat(pose[:, 3:].reshape(2, 22, 6)).cpu().numpy()
+    else:
+        rotmat, betas, trans = (preds[k][0].float().cpu().numpy()
+                                for k in ("pred_rotmat", "pred_betas", "pred_trans"))
     return _summary_grid(smplx_params, batch, rotmat, betas, trans)
 
 
@@ -263,20 +276,6 @@ def main(argv=None):
         raise SystemExit(
             "--qat_act extends --qat with activation fake-quant; an "
             "activations-only configuration is undefined (pass --qat too)")
-    if args.datapath.startswith("real://"):
-        raise SystemExit(
-            "real:// (the self-supervised fine-tune on real captures) is not "
-            "ported yet: it needs VPoser, the real losses and the real readers, "
-            "ROADMAP queue 1 item 8")
-    # the flags only real:// reads: refused rather than ignored
-    real_only = [f"--{dest}" for dest, given in (
-                     ("vposer_ckpt", args.vposer_ckpt), ("train_frames", tuple(args.train_frames)),
-                     ("test_frames", tuple(args.test_frames)))
-                 if given != build_parser().get_default(dest)]
-    if real_only:
-        raise SystemExit(
-            f"{', '.join(real_only)} only apply to real:// (the self-supervised "
-            "fine-tune), which is not ported yet: ROADMAP queue 1 item 8")
     dev = resolve_device(args.platform)
     anomaly = (torch.autograd.detect_anomaly() if args.debug_nans
                else contextlib.nullcontext())
@@ -322,6 +321,7 @@ def _train(args, dev: torch.device):
         ).to(dev)
 
     # ---- data ----
+    real_finetune = args.datapath.startswith("real://")
     sources = None          # supervised on-disk source list (set below)
     source_loss_kinds = []  # per-source loss kind ("smpl" | "joints")
     source_names = []       # per-source kind label for metric reporting
@@ -343,6 +343,49 @@ def _train(args, dev: torch.device):
                 yield {k: v[s : s + cfg.val_batch_size] for k, v in data.items()}
             if n - n_train < cfg.val_batch_size:
                 yield {k: v[n_train:] for k, v in data.items()}
+    elif real_finetune:
+        # Real DJI layout: self-supervised fine-tune (OpenPose/AlphaPose 2D
+        # + VPoser prior; ref copenet_real/copenet_trainer.py).
+        from ..data import CopenetRealDataset
+
+        path = args.datapath[len("real://"):]
+        # fixed camera order: the per-view focal lengths differ (the
+        # reference also trains the real twoview with shuffle_cams=False)
+        train_ds = CopenetRealDataset(
+            path, frame_range=range(*args.train_frames), shuffle_cams=False,
+            context_size=args.context_size)
+        test_ds = CopenetRealDataset(path, frame_range=range(*args.test_frames),
+                                     context_size=args.context_size)
+        print(f"loaded {len(train_ds)} train / {len(test_ds)} test frames")
+        # per-camera focal lengths (ref copenet_real/constants.py:12-13, used
+        # by the real loss's projection, copenet_twoview.py:300-306)
+        focal = torch.tensor([C.REAL_FOCAL_LENGTH0, C.REAL_FOCAL_LENGTH1], device=dev)
+
+        def _finish_real(ds, idx, rng_np):
+            b = finish_batch(ds.host_batch(idx, rng_np), None, deterministic=True, margin=0.0,
+                             out_size=cfg.img_res, device=dev)
+            b["gt_j2d_conf"] = b["gt_j2d_conf"][:, :, :22]
+            b["focal"] = focal
+            return b
+
+        def train_batches():
+            # per-worker deterministic streams; interleaving is unordered
+            # (the training stream is random sampling anyway)
+            worker_rng = {}
+
+            def make_batch(wid):
+                rng_np = worker_rng.setdefault(wid, np.random.default_rng(cfg.seed + wid))
+                idx = rng_np.integers(0, len(train_ds), size=cfg.batch_size)
+                return _finish_real(train_ds, idx, rng_np)
+
+            return Prefetcher.from_factory(
+                make_batch, num_workers=max(1, args.data_workers), device=dev)
+
+        def val_batches():
+            rng_np = np.random.default_rng(cfg.seed)
+            bs = min(cfg.val_batch_size, len(test_ds))
+            for s in range(0, min(len(test_ds), 4 * bs) - bs + 1, bs):
+                yield _finish_real(test_ds, list(range(s, s + bs)), rng_np)
     else:
         # Supervised on-disk families — ONE source factory shared by the
         # standalone aerialpeople / h36m:// / totalcap:// paths AND
@@ -604,12 +647,53 @@ def _train(args, dev: torch.device):
                 args.body_only_verts, smplx_params.v_template.shape[0])).to(dev)
             print(f"body-only vertex loss: {int((vmask == 0).sum())} hand/face "
                   f"vertices masked of {vmask.shape[0]}")
+            if real_finetune:
+                raise SystemExit(
+                    "--body_only_verts applies to the supervised vertex loss; "
+                    "the real:// self-supervised objective has no vertex term")
             if sources is not None and "smpl" not in source_loss_kinds:
                 raise SystemExit(
                     "--body_only_verts applies to the supervised vertex loss; "
                     "none of the given sources has a vertex term (joints-only "
                     "GT such as h36m:// uses joints_loss)")
-        if cfg.model in ("copenet_twoview", "copenet_twoview_sep"):
+        if real_finetune:
+            from ..bodymodel import init_vposer_params, load_vposer_ckpt
+            from .loop import make_real_singleview_step_fns, make_real_twoview_step_fns
+
+            if args.vposer_ckpt:
+                vposer_params = load_vposer_ckpt(args.vposer_ckpt).to(dev)
+                print(f"loaded VPoser prior from {args.vposer_ckpt}")
+            else:
+                # A randomly-initialized VAE is NOT a pose prior — fine-tuning
+                # against it regularizes toward noise. Kept only so tests and
+                # smoke runs work without the released weights. Seed 0, the
+                # placeholder prior the JAX package's eval also builds.
+                print("WARNING: no --vposer_ckpt given; using a RANDOM VPoser "
+                      "prior. Real fine-tuning results will be meaningless — "
+                      "pass the released V02_05 snapshot for the reference's "
+                      "self-supervised objective.", flush=True)
+                vposer_params = init_vposer_params(0).to(dev)
+            if cfg.model in ("copenet_twoview", "copenet_twoview_sep"):
+                train_step, eval_step = make_real_twoview_step_fns(
+                    model, smplx_params, vposer_params, cfg, tx, device=dev)
+            elif cfg.model == "hmr":
+                # the real trainer's --model=hmr alias is the camera-swapped
+                # variant (ref copenet_real/copenet_trainer.py:32-38): the view
+                # alternates per step (the "camswap" training regime)
+                view_step, eval_step = make_real_singleview_step_fns(
+                    model, smplx_params, vposer_params, cfg, tx, "hmr_camswap_difffl",
+                    device=dev)
+                steps_taken = [0]
+
+                def train_step(state, batch, gen):
+                    view = steps_taken[0] % 2
+                    steps_taken[0] += 1
+                    return view_step(state, batch, gen, view)
+            else:
+                raise SystemExit(
+                    f"--model {cfg.model} has no real:// fine-tune path "
+                    "(use copenet_twoview[_sep] or hmr)")
+        elif cfg.model in ("copenet_twoview", "copenet_twoview_sep"):
             smpl_loss = None if vmask is None else functools.partial(
                 losses.twoview_loss, vertex_mask=vmask)
             if sources is not None:
@@ -720,9 +804,12 @@ def _train(args, dev: torch.device):
                         "copenet_twoview", "copenet_twoview_sep"
                     ):
                         # rendered per-view [input | pred] grid summary (the
-                        # reference's TB summaries, copenet_twoview.py:445-501)
+                        # reference's TB summaries, copenet_twoview.py:445-501),
+                        # incl. the real fine-tune path where visuals are the
+                        # only verification signal
                         try:
-                            img = _twoview_summary(smplx_params, vb, preds)
+                            img = _twoview_summary(smplx_params, vb, preds, real_finetune,
+                                                   cfg.trans_scale)
                             writer.add_image(
                                 "val_pred_shape_cam", img.transpose(2, 0, 1), step
                             )

@@ -73,7 +73,32 @@ Phases, each of which exits non-zero on failure:
      the plain skinning, then host_batch(decode_images=False) →
      finish_batch → one make_twoview_step_fns step; the CLI's last.ckpt
      loaded with strict=True, its eval forward equal to the in-memory
-     model's.
+     model's;
+ 11. the real-data self-supervised fine-tune on a synthetic DJI capture of
+     48 train and 30 test frames of 1920×1080 JPEGs a machine (written by
+     airpose_tpu_torch.data.fake_real under phase 10's temporary
+     directory), with the random VPoser prior of seed 0 at its published
+     widths: VPoser encode/decode at 60 bodies on the card against the CPU;
+     CopenetRealDataset.host_batch → finish_batch at B = 30 on the card
+     against the CPU, with the host's decode time; one
+     make_real_twoview_step_fns step (bf16 AirPoseTwoView) with the
+     skinning kernel against one with the plain skinning (a determinism
+     check: the real losses read no skinned vertex, so the two steps are
+     equal bit for bit), then 10 steps on one batch each skinning 60
+     bodies once with the loss finite and falling, ms a step, and
+     eval_step's predictions skinned with the kernel against the plain
+     version (the kernel's agreement on this path); the
+     hmr_camswap_difffl step on each view, kernel step against plain step,
+     then 10 steps alternating views 0/1 each skinning 30 bodies once, its
+     eval vertices kernel against plain, and 6 steps timed from a fresh
+     model with their losses finite; the per-drone model's real step, kernel step against plain
+     step; trainer.main in-process on real:// (copenet_twoview,
+     B = 30 of 224², 10 steps, val at 10): skinning once a train step (60
+     bodies), once in the val batch (60) and once in the summary grid (2),
+     counted in the call each ran in, checkpoints written and the grid
+     rendered, the CLI step beside phase 8's; then a 2-step
+     --pretrained_checkpoint (phase 10's last.ckpt) --train_reg_only run:
+     the trunk bit-equal to the pretrained one, the heads moved.
 Prints the kernels as one JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA device is available.
@@ -170,6 +195,24 @@ CANON_REL = 1e-5
 CLI_STEPS, CLI_VAL_EVERY, CLI_SAMPLES = 20, 10, 64
 CLI_BATCH, CLI_IMG = 30, 224   # the trainer's defaults: B = 30 frames of 224²
 AERIAL_RECORDS = 300  # one chunk of 256 bodies and a tail of 44
+# Phase 11. VPoser on the card against the CPU, bound on max |diff| over
+# max |CPU| of each output: the encoder's f32 dense layers of width 512 (TF32
+# off) summed in other orders, measured 6.0e-7 on the H100, bound 1e-5; the
+# decoder's rotations pass Gram-Schmidt, which divides by the residual of the
+# second 6D column, small for some of the 1,260 random-weight joints: the
+# CPU's own f32 decode is 7.1e-6 from an f64 one and the card's 9.4e-6 from
+# the CPU's, bound 1e-4.
+VPOSER_ENCODE_REL, VPOSER_DECODE_REL = 1e-5, 1e-4
+# The real steps' kernel step against their plain step is a determinism
+# check, not the kernel's agreement: the real losses read only the first 22
+# joints, which the kinematic chain gives before skinning, so the skinned
+# vertices reach neither the loss nor a gradient (their backward gets zeros)
+# and the two steps are equal bit for bit (measured 0 in every part).
+# Skinning's own agreement on this path is checked on the vertices of
+# eval_step's predictions (CANON_REL).
+REAL_BOUNDS = {"loss": 0.0, "regressor": 0.0, "trunk": 0.0}
+REAL_TRAIN_FRAMES, REAL_TEST_FRAMES = 48, 30   # the synthetic DJI capture
+REAL_STEPS = 10
 
 
 def log(msg):
@@ -752,12 +795,26 @@ def singleview_steps(model, smplx_params, cfg, family):
     return make_steps
 
 
+def device_work(fn, n):
+    """The device's kernels and copies of ``n`` calls of ``fn`` under the
+    profiler (not the record_function spans' device-side ranges, which are
+    not work), and the wall ms a call there (the profiler slows the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_ms = wall_ms(fn, iters=n, warmup=0)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.name not in ("forward", "backward", "optimizer")]
+    return events, prof_ms
+
+
 def phase_train(dev):
     """The two-view training step of record at B = 30 frames of 224²."""
     from unittest import mock
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     import airpose_tpu_torch.train.loop as loop
     from airpose_tpu_torch.bodymodel import cuda_lbs, synthetic_smplx_params
@@ -839,11 +896,7 @@ def phase_train(dev):
     # idle share = 1 − busy / wall, wall from the unprofiled steps, as
     # profile_chain does (the profiler slows the host)
     n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prof_ms = wall_ms(lambda: train_step(state, batch, gen), iters=n_prof, warmup=0)
-    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-                     and not getattr(e, "is_user_annotation", False)
-                     and e.name not in spans]
+    device_events, prof_ms = device_work(lambda: train_step(state, batch, gen), n_prof)
     busy_ms = sum(e.time_range.elapsed_us() for e in device_events) / 1e3 / n_prof
     fps = B / (step_ms / 1e3)
     log(f"train step at B={B} frames (2·{B} crops of 224²): {step_ms:.3f} ms, {fps:.1f} "
@@ -1058,13 +1111,97 @@ def reset_kernel_counts():
     cuda_lbs.launches = fb.launches = ic.launches = 0
 
 
+class CliRun:
+    """trainer.main in-process, with the bodies of each skinning launch and
+    the call it ran in (the set-up, a train step, a val batch, a summary
+    grid), the calls of each kind, the states the trainer saves, the seconds
+    of each save and grid, and its standard output stamped by the host clock
+    (the names trainer.main calls are wrapped here only). ``step_factory``
+    names the loop.py factory whose steps the run calls."""
+
+    def __init__(self, step_factory):
+        self.step_factory = step_factory
+        self.bodies, self.where, self.calls = [], [], {"train": 0, "val": 0, "grid": 0}
+        self.saved, self.save_s, self.summary_s = [], [], []
+
+    def run(self, argv):
+        """→ (the stamped output, seconds to return); the kernel counts are
+        reset to 0 just before the call."""
+        from airpose_tpu_torch.bodymodel import cuda_lbs
+        from airpose_tpu_torch.train import checkpoint as ckpt_mod
+        from airpose_tpu_torch.train import loop, trainer
+
+        inside = ["set-up"]
+        launch, save = cuda_lbs._launch, ckpt_mod.CheckpointManager.save
+        summary, step_fns = trainer._twoview_summary, getattr(loop, self.step_factory)
+
+        def counted_launch(w, a, p):
+            self.bodies.append(a.shape[0])
+            self.where.append(inside[0])
+            return launch(w, a, p)
+
+        def within(name, fn):
+            def call(*a):
+                inside[0] = name
+                self.calls[name] += 1
+                try:
+                    return fn(*a)
+                finally:
+                    inside[0] = "other"
+            return call
+
+        def tagged_step_fns(*a, **kw):
+            train_step, eval_step = step_fns(*a, **kw)
+            return within("train", train_step), within("val", eval_step)
+
+        def kept_save(manager, state, name="last"):
+            self.saved.append(state)
+            t = time.perf_counter()
+            save(manager, state, name)
+            self.save_s.append(time.perf_counter() - t)
+
+        def timed_summary(*a):
+            t = time.perf_counter()
+            try:
+                return within("grid", summary)(*a)
+            finally:
+                self.summary_s.append(time.perf_counter() - t)
+
+        out = _Lines(sys.stdout)
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(cuda_lbs, "_launch", counted_launch), \
+                mock.patch.object(ckpt_mod.CheckpointManager, "save", kept_save), \
+                mock.patch.object(trainer, "_twoview_summary", timed_summary), \
+                mock.patch.object(loop, self.step_factory, tagged_step_fns), \
+                contextlib.redirect_stdout(out):
+            trainer.main(argv)
+        torch.cuda.synchronize()
+        self.t0 = t0
+        return out, time.perf_counter() - t0
+
+    def per_call(self):
+        """Skinning launches a call of each kind (over the calls made) and
+        in the set-up."""
+        per_call = {name: self.where.count(name) / n for name, n in self.calls.items() if n}
+        per_call["set-up"] = self.where.count("set-up")
+        return per_call
+
+
+def logged_losses(lines):
+    """{step: train loss} and {step: val loss} from the trainer's output."""
+    train = {int(ln.split()[1]): float(ln.split()[3]) for ln in lines
+             if ln.startswith("step ") and " loss " in ln}
+    val = {int(ln.split()[1]): float(ln.split()[3]) for ln in lines
+           if ln.startswith("step ") and " val_loss " in ln}
+    return train, val
+
+
 def phase_cli(dev, tmp, card, phase8_step_ms):
     """Phase 10, the CLI: trainer.main in-process, then the module's entry
     point as a subprocess, resuming and then preempted."""
-    from airpose_tpu_torch.bodymodel import cuda_lbs
     from airpose_tpu_torch.models import AirPoseTwoView
     from airpose_tpu_torch.train import checkpoint as ckpt_mod
-    from airpose_tpu_torch.train import loop, trainer
 
     write_smplx_npz(tmp)
     logs = os.path.join(tmp, "logs")
@@ -1075,58 +1212,11 @@ def phase_cli(dev, tmp, card, phase8_step_ms):
     run_dir = os.path.join(logs, "smoke", "version_0")
     ckpt_dir = os.path.join(run_dir, "checkpoints")
 
-    # the bodies of each skinning launch and the call it ran in (set-up, a
-    # train step, a val batch, a summary grid), the calls of each, and the
-    # states the trainer saves (the names trainer.main calls are wrapped here only)
-    bodies, where, calls = [], [], {"train": 0, "val": 0, "grid": 0}
-    saved, save_s, summary_s = [], [], []
-    inside = ["set-up"]
-    launch, save = cuda_lbs._launch, ckpt_mod.CheckpointManager.save
-    summary, step_fns = trainer._twoview_summary, loop.make_twoview_step_fns
-
-    def counted_launch(w, a, p):
-        bodies.append(a.shape[0])
-        where.append(inside[0])
-        return launch(w, a, p)
-
-    def within(name, fn):
-        def call(*a):
-            inside[0] = name
-            calls[name] += 1
-            try:
-                return fn(*a)
-            finally:
-                inside[0] = "other"
-        return call
-
-    def tagged_step_fns(*a, **kw):
-        train_step, eval_step = step_fns(*a, **kw)
-        return within("train", train_step), within("val", eval_step)
-
-    def kept_save(self, state, name="last"):
-        saved.append(state)
-        t = time.perf_counter()
-        save(self, state, name)
-        save_s.append(time.perf_counter() - t)
-
-    def timed_summary(*a):
-        t = time.perf_counter()
-        try:
-            return within("grid", summary)(*a)
-        finally:
-            summary_s.append(time.perf_counter() - t)
-
-    out = _Lines(sys.stdout)
-    reset_kernel_counts()
-    t0 = time.perf_counter()
-    with mock.patch.object(cuda_lbs, "_launch", counted_launch), \
-            mock.patch.object(ckpt_mod.CheckpointManager, "save", kept_save), \
-            mock.patch.object(trainer, "_twoview_summary", timed_summary), \
-            mock.patch.object(loop, "make_twoview_step_fns", tagged_step_fns), \
-            contextlib.redirect_stdout(out):
-        trainer.main(args + ["--max_steps", str(CLI_STEPS)])
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+    cli = CliRun("make_twoview_step_fns")
+    out, run_s = cli.run(args + ["--max_steps", str(CLI_STEPS)])
+    t0 = cli.t0
+    bodies, where, calls, saved = cli.bodies, cli.where, cli.calls, cli.saved
+    save_s, summary_s = cli.save_s, cli.summary_s
     counts = kernel_counts()
     lines = [line for _, line in out.lines]
     first_s = out.lines[0][0] - t0
@@ -1153,17 +1243,13 @@ def phase_cli(dev, tmp, card, phase8_step_ms):
     metrics = [f for f in os.listdir(run_dir)
                if f == "metrics.jsonl" or f.startswith("events.out.tfevents")]
     check(bool(metrics), f"no metrics file in {os.listdir(run_dir)}")
-    train_loss = {int(ln.split()[1]): float(ln.split()[3]) for ln in lines
-                  if ln.startswith("step ") and " loss " in ln}
-    val_loss = {int(ln.split()[1]): float(ln.split()[3]) for ln in lines
-                if ln.startswith("step ") and " val_loss " in ln}
+    train_loss, val_loss = logged_losses(lines)
     skipped = [ln for ln in lines if ln.startswith("summary render skipped")]
     log(f"CLI losses: train {train_loss}, val {val_loss}; metrics file {metrics[0]}; "
         f"summary grids: {skipped or 'rendered'} [{card}]")
     check(not skipped, f"CLI summary grid not rendered: {skipped}")
     # skinning launches a call of each kind, counted in the call it ran in
-    per_call = {name: where.count(name) / n for name, n in calls.items() if n}
-    per_call["set-up"] = where.count("set-up")
+    per_call = cli.per_call()
     log(f"CLI skinning launches a call: {per_call} over {calls} calls and the set-up; "
         f"{where.count('other')} elsewhere [{card}]")
     passes = CLI_STEPS // CLI_VAL_EVERY
@@ -1434,6 +1520,360 @@ def phase_readers(dev, tmp, smplx_params, card):
             "canonical_rel": rel, "step_loss": loss}
 
 
+def real_batch(ds, idx, dev):
+    """The trainer's real:// batch of frames ``idx`` of ``ds`` on ``dev``:
+    host_batch (60 JPEG decodes of 1920×1080) → finish_batch, the first 22
+    keypoints and the DJI focal lengths."""
+    from airpose_tpu_torch import constants as C
+    from airpose_tpu_torch.data.pipeline import finish_batch
+
+    b = finish_batch(ds.host_batch(idx, np.random.default_rng(0)), None, deterministic=True,
+                     margin=0.0, out_size=CLI_IMG, device=dev)
+    b["gt_j2d_conf"] = b["gt_j2d_conf"][:, :, :22]
+    b["focal"] = torch.tensor([C.REAL_FOCAL_LENGTH0, C.REAL_FOCAL_LENGTH1], device=dev)
+    return b
+
+
+def phase_real_data(dev, root, card):
+    """Phase 11 (a)-(b): VPoser encode/decode on the card against the CPU at
+    60 bodies; the DJI reader's host_batch → finish_batch on the card against
+    the CPU at B = 30 of the capture's 1920×1080 frames, with the host's
+    decode time."""
+    from airpose_tpu_torch.bodymodel import init_vposer_params, vposer_decode, vposer_encode
+    from airpose_tpu_torch.data import CopenetRealDataset
+    from airpose_tpu_torch.data.pipeline import finish_batch
+
+    params = init_vposer_params(0)
+    rng = np.random.default_rng(21)
+    pose = torch.from_numpy(rng.normal(size=(2 * CLI_BATCH, 63)).astype(np.float32) * 0.4)
+    z = torch.from_numpy(rng.normal(size=(2 * CLI_BATCH, 32)).astype(np.float32))
+    names = ("mu", "sigma", "pose_body", "pose_body_matrot")
+
+    def vposer(p, device):
+        with torch.no_grad():
+            return (*vposer_encode(p, pose.to(device)),
+                    *vposer_decode(p, z.to(device)).values())
+    want, got = vposer(params, "cpu"), vposer(params.to(dev), dev)
+    vrel = {n: ((g.cpu() - w).abs().max() / w.abs().max()).item()
+            for n, g, w in zip(names, got, want)}
+    bounds = dict(zip(names, (VPOSER_ENCODE_REL,) * 2 + (VPOSER_DECODE_REL,) * 2))
+    log(f"VPoser (63 → 512 → 512 → 512 → 32; 32 → 512 → 512 → 126) at {2 * CLI_BATCH} bodies, "
+        f"card vs CPU: max relative {vrel} (bounds {bounds}) [{card}]")
+    check(all(vrel[n] <= bounds[n] for n in names), f"VPoser on the card: {vrel}")
+
+    ds = CopenetRealDataset(root, frame_range=range(0, REAL_TRAIN_FRAMES))
+    idx = np.random.default_rng(3).integers(0, len(ds), CLI_BATCH)
+    hb = ds.host_batch(idx, np.random.default_rng(0))
+    t = time.perf_counter()
+    for _ in range(3):
+        ds.host_batch(idx, np.random.default_rng(0))
+    host_ms = (time.perf_counter() - t) / 3 * 1e3
+    got = finish_batch(hb, None, deterministic=True, margin=0.0, out_size=CLI_IMG, device=dev)
+    want = finish_batch(hb, None, deterministic=True, margin=0.0, out_size=CLI_IMG,
+                        device="cpu")
+    img = (got["images"].cpu() - want["images"]).abs().max().item()
+    rel = {k: ((got[k].cpu() - want[k]).abs().max() / want[k].abs().max()).item()
+           for k in ("bb", "gt_j2d_crop_conf")}
+    finish_ms = wall_ms(lambda: finish_batch(hb, None, deterministic=True, margin=0.0,
+                                             out_size=CLI_IMG, device=dev), iters=5, warmup=1)
+    log(f"DJI reader: {len(ds)} frames of {ds.frame_wh}; host_batch at B={CLI_BATCH} "
+        f"({2 * CLI_BATCH} JPEG decodes and crops) {host_ms:.1f} ms on the host, finish_batch "
+        f"{finish_ms:.3f} ms; finish_batch card vs CPU: images max abs {img:.3e} (bound "
+        f"{PIPE_IMG_ATOL}), relative {rel} (bound {PIPE_GEOM_REL}) [{card}]")
+    check(ds.frame_wh == (1920, 1080) and len(ds) == REAL_TRAIN_FRAMES,
+          f"DJI reader: {len(ds)} frames of {ds.frame_wh}")
+    check(set(got) == set(want), f"finish_batch keys {sorted(got)} vs {sorted(want)}")
+    check(img <= PIPE_IMG_ATOL and all(r <= PIPE_GEOM_REL for r in rel.values()),
+          f"the real batch on the card disagrees with the CPU: {img}, {rel}")
+    return ds, idx, {"vposer_rel": vrel, "host_batch_ms": host_ms, "finish_batch_ms": finish_ms,
+                     "images_max_abs": img, **rel}
+
+
+@contextlib.contextmanager
+def skinning_bodies():
+    """The bodies of each skinning launch made inside the block."""
+    from airpose_tpu_torch.bodymodel import cuda_lbs
+
+    bodies, launch = [], cuda_lbs._launch
+
+    def counted(w, a, p):
+        bodies.append(a.shape[0])
+        return launch(w, a, p)
+
+    with mock.patch.object(cuda_lbs, "_launch", counted):
+        yield bodies
+
+
+def real_twoview_steps(model, smplx_params, vposer, cfg):
+    """make_steps (phase 8's kernel_vs_plain_step) for the real two-view
+    steps."""
+    from airpose_tpu_torch.train import make_real_twoview_step_fns
+
+    def make_steps(tx, use_kernels):
+        return make_real_twoview_step_fns(model, smplx_params, vposer, cfg, tx,
+                                          use_kernels=use_kernels)
+    return make_steps
+
+
+def train_counted(train_step, state, batch, gen, what, bodies_a_step, views=None):
+    """REAL_STEPS steps on one batch, each launching skinning once on
+    ``bodies_a_step`` bodies; ``views`` alternates the step's view. → the
+    losses."""
+    losses = []
+    for i in range(REAL_STEPS):
+        extra = () if views is None else (views[i % len(views)],)
+        with skinning_bodies() as bodies:
+            state, metrics = train_step(state, batch, gen, *extra)
+        losses.append(metrics["loss"].item())
+        check(bodies == [bodies_a_step], f"{what} step {i} skinned {bodies}, expected "
+              f"[{bodies_a_step}]")
+    check(bool(np.isfinite(losses).all()), f"non-finite {what} loss {losses}")
+    return losses
+
+
+def eval_vertices_agree(smplx_params, rotmat, betas, what, card):
+    """The canonical skinned vertices of eval_step's predictions (rotmat
+    (B, V, 22, 3, 3), betas (B, V, 10)) with the kernel, one launch of B·V
+    bodies, against the plain skinning."""
+    from airpose_tpu_torch.train import canonical_smplx_two_view
+
+    with torch.no_grad():
+        with skinning_bodies() as bodies:
+            got, _ = canonical_smplx_two_view(smplx_params, betas, rotmat)
+        want, _ = canonical_smplx_two_view(smplx_params, betas, rotmat, use_kernels=False)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    n = rotmat.shape[0] * rotmat.shape[1]
+    log(f"{what} eval_step predictions: skinned vertices with the kernel ({bodies} bodies) vs "
+        f"plain, max relative {rel:.3e} (bound {CANON_REL}) [{card}]")
+    check(bodies == [n] and rel <= CANON_REL,
+          f"{what} eval vertices: skinned {bodies}, kernel vs plain {rel}")
+    return rel
+
+
+def phase_real_steps(dev, smplx_params, batch, card):
+    """Phase 11 (c)-(d): the real two-view step (bf16 AirPoseTwoView, seed
+    0), kernel step against plain step (a determinism check, REAL_BOUNDS),
+    then REAL_STEPS steps on one batch with the loss falling and its ms,
+    and its eval vertices kernel against plain; the same for the
+    hmr_camswap_difffl step on each view, with REAL_STEPS steps
+    alternating the view; the per-drone model's real step, kernel step
+    against plain step."""
+    from airpose_tpu_torch.bodymodel import init_vposer_params
+    from airpose_tpu_torch.config import TrainConfig
+    from airpose_tpu_torch.geometry import rot6d_to_rotmat
+    from airpose_tpu_torch.models import HMR, AirPoseTwoView, AirPoseTwoViewSep
+    from airpose_tpu_torch.train import create_train_state, make_real_singleview_step_fns
+
+    vposer = init_vposer_params(0).to(dev)
+    B = batch["images"].shape[0]
+    out = {}
+    cfg = TrainConfig()
+    model = AirPoseTwoView(dtype=torch.bfloat16, seed=0).to(dev)
+    make_steps = real_twoview_steps(model, smplx_params, vposer, cfg)
+    agree = kernel_vs_plain_step(model, make_steps, cfg, batch, REAL_BOUNDS,
+                                 "real two-view, bf16 trunk (determinism check)")
+    state, tx = create_train_state(model, cfg.lr)
+    train_step, eval_step = make_steps(tx, True)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    losses = train_counted(train_step, state, batch, gen, "real two-view", 2 * B)
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"the real two-view loss did not fall: {losses}")
+    metrics, preds = eval_step(state, batch)
+    check(tuple(preds.pose.shape) == (B, 2, 135) and bool(torch.isfinite(preds.pose).all())
+          and bool(torch.isfinite(metrics["loss"])), f"real eval_step pose {preds.pose.shape}")
+    vertices_rel = eval_vertices_agree(
+        smplx_params, rot6d_to_rotmat(preds.pose[..., 3:].reshape(B, 2, 22, 6)), preds.betas,
+        "real two-view", card)
+    # the step as the trainer feeds it, then with the batch's images made
+    # contiguous: finish_batch hands them over (B, V, H, C, W)-strided
+    timing = {}
+    for layout, b in (("as finished", batch),
+                      ("contiguous", {**batch, "images": batch["images"].contiguous()})):
+        ms = wall_ms(lambda: train_step(state, b, gen), iters=10, warmup=2)
+        events, _ = device_work(lambda: train_step(state, b, gen), 3)
+        busy = sum(e.time_range.elapsed_us() for e in events) / 1e3 / 3
+        by_name = {}
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / 3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        timing[layout] = {"step_ms": ms, "busy_ms": busy, "device_events_per_step":
+                          len(events) / 3, "idle_share": 1 - busy / ms}
+        log(f"real two-view step, images {layout} (strides {tuple(b['images'].stride())}): "
+            f"{ms:.3f} ms, device busy {busy:.3f} ms in {len(events) / 3:.0f} kernels and "
+            f"copies, idle share {1 - busy / ms:.3f}; top device time a step: "
+            + "; ".join(f"{t:.3f} ms {n[:70]}" for n, t in top) + f" [{card}]")
+    step_ms = timing["as finished"]["step_ms"]
+    log(f"real two-view: {REAL_STEPS} steps at B={B}, losses {[round(x, 1) for x in losses]}; "
+        f"{step_ms:.3f} ms a step, {B / step_ms * 1e3:.1f} frames/s; eval loss "
+        f"{metrics['loss'].item():.1f} [{card}]")
+    out["twoview"] = {"step_determinism": agree, "losses": losses, **timing["as finished"],
+                      "frames_per_s": B / step_ms * 1e3, "contiguous_images": timing["contiguous"],
+                      "skinning_bodies_a_step": 2 * B, "eval_vertices_rel": vertices_rel}
+    del model, state, tx, train_step, eval_step, make_steps
+
+    cfg = TrainConfig(model="hmr")
+    model = HMR(dtype=torch.bfloat16, seed=0).to(dev)
+    agree = {}
+    for view in (0, 1):
+        def view_steps(tx, use_kernels, view=view):
+            step, ev = make_real_singleview_step_fns(model, smplx_params, vposer, cfg, tx,
+                                                     "hmr_camswap_difffl",
+                                                     use_kernels=use_kernels)
+            return (lambda state, batch, gen: step(state, batch, gen, view)), ev
+        agree[f"view {view}"] = kernel_vs_plain_step(
+            model, view_steps, cfg, batch, REAL_BOUNDS, f"hmr_camswap_difffl view {view}, "
+            "bf16 trunk (determinism check)")
+    state, tx = create_train_state(model, cfg.lr)
+    train_step, eval_step = make_real_singleview_step_fns(model, smplx_params, vposer, cfg, tx,
+                                                          "hmr_camswap_difffl")
+    losses = train_counted(train_step, state, batch, gen, "hmr_camswap_difffl", B, views=(0, 1))
+    check(np.mean(losses[-4:]) < np.mean(losses[:4]),
+          f"the hmr_camswap_difffl loss did not fall: {losses}")
+    _, preds = eval_step(state, batch)
+    vertices_rel = eval_vertices_agree(
+        smplx_params, rot6d_to_rotmat(preds.pose6d.reshape(B, 1, 22, 6)), preds.betas[:, None],
+        "hmr_camswap_difffl", card)
+    # timed on a fresh model, alternating views as above: the weak camera's barrier
+    # exp(−t_z)², t_z = 2f/(res·s), overflows once a predicted scale s turns
+    # negative, as the JAX package's objective does; on this one batch the step after
+    # the 10 above was measured inf on the H100, so the timed steps start afresh and
+    # their losses are checked finite
+    del model, state, tx, train_step, eval_step
+    model = HMR(dtype=torch.bfloat16, seed=0).to(dev)
+    state, tx = create_train_state(model, cfg.lr)
+    train_step, _ = make_real_singleview_step_fns(model, smplx_params, vposer, cfg, tx,
+                                                  "hmr_camswap_difffl")
+    timed = []
+    step_ms = wall_ms(lambda: timed.append(
+        train_step(state, batch, gen, len(timed) % 2)[1]["loss"]), iters=5, warmup=1)
+    timed = [x.item() for x in timed]
+    check(bool(np.isfinite(timed).all()), f"non-finite timed hmr_camswap_difffl loss {timed}")
+    log(f"hmr_camswap_difffl: {REAL_STEPS} steps at B={B} alternating views 0/1, losses "
+        f"{[round(x, 1) for x in losses]}; {step_ms:.3f} ms a step from a fresh model, its "
+        f"losses {[round(x, 1) for x in timed]} [{card}]")
+    out["hmr_camswap_difffl"] = {"step_determinism": agree, "losses": losses,
+                                 "step_ms": step_ms, "timed_losses": timed,
+                                 "skinning_bodies_a_step": B,
+                                 "eval_vertices_rel": vertices_rel}
+    del model, state, tx, train_step
+
+    cfg = TrainConfig(model="copenet_twoview_sep")
+    model = AirPoseTwoViewSep(dtype=torch.bfloat16, seed=0).to(dev)
+    make_steps = real_twoview_steps(model, smplx_params, vposer, cfg)
+    agree = kernel_vs_plain_step(model, make_steps, cfg, batch, REAL_BOUNDS,
+                                 "real copenet_twoview_sep, bf16 trunks (determinism check)")
+    state, tx = create_train_state(model, cfg.lr)
+    train_step, _ = make_steps(tx, True)
+    with skinning_bodies() as bodies:
+        _, metrics = train_step(state, batch, gen)
+    check(bodies == [2 * B] and bool(torch.isfinite(metrics["loss"])),
+          f"real copenet_twoview_sep step: skinned {bodies}, loss {metrics['loss'].item()}")
+    out["copenet_twoview_sep"] = {"step_determinism": agree, "skinning_bodies_a_step": bodies[0]}
+    del model, state, tx, train_step, make_steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def trunk_tensors(state_dict):
+    """The ResNet-50 trunk's parameters in a reference-layout state dict."""
+    return {k: v for k, v in state_dict.items()
+            if k.startswith(("model.conv1", "model.bn1", "model.layer"))
+            and "running" not in k and "num_batches" not in k}
+
+
+def phase_real_cli(tmp, root, card, phase8_step_ms, pretrained):
+    """Phase 11 (e): trainer.main in-process on real:// (copenet_twoview,
+    B = 30 of 224², REAL_STEPS steps, val at the end), skinning counted in
+    the call each launch ran in; then the README's chain: a 2-step
+    --train_reg_only fine-tune from ``pretrained`` whose trunk stays
+    bit-equal to it while the heads move."""
+    logs = os.path.join(tmp, "real_logs")
+    args = ["--version", "0", "--model", "copenet_twoview", "--datapath", f"real://{root}",
+            "--train_frames", "0", str(REAL_TRAIN_FRAMES), "--test_frames",
+            str(REAL_TRAIN_FRAMES), str(REAL_TRAIN_FRAMES + REAL_TEST_FRAMES),
+            "--log_dir", logs, "--batch_size", str(CLI_BATCH), "--val_batch_size",
+            str(CLI_BATCH), "--img_res", str(CLI_IMG)]
+    cli = CliRun("make_real_twoview_step_fns")
+    out, run_s = cli.run(args + ["--name", "real", "--max_steps", str(REAL_STEPS),
+                                 "--val_every", str(REAL_STEPS)])
+    lines = [line for _, line in out.lines]
+    train_loss, val_loss = logged_losses(lines)
+    skipped = [ln for ln in lines if ln.startswith("summary render skipped")]
+    # one val batch of the 30 test frames, 60 bodies; the grid after it
+    want = [2 * CLI_BATCH] * REAL_STEPS + [2 * REAL_TEST_FRAMES, 2]
+    per_call = cli.per_call()
+    counts = kernel_counts()
+    log(f"CLI real:// in-process: returned after {run_s:.1f} s; skinning by bodies "
+        f"{cli.bodies}; launches a call {per_call} over {cli.calls}; kernel launches {counts}; "
+        f"{len(cli.save_s)} checkpoint saves {sum(cli.save_s):.1f} s, grid "
+        f"{sum(cli.summary_s):.1f} s; losses train {train_loss}, val {val_loss}; summary grid "
+        f"{skipped or 'rendered'} [{card}]")
+    check(cli.bodies == want, f"real CLI skinning launches by bodies {cli.bodies}, expected "
+          f"{want}")
+    check(cli.calls == {"train": REAL_STEPS, "val": 1, "grid": 1}, f"real CLI calls {cli.calls}")
+    check(per_call == {"train": 1, "val": 1, "grid": 1, "set-up": 0}
+          and "other" not in cli.where, f"real CLI skinning launches a call {per_call}")
+    check(counts == {"lbs_skinning": len(want), "fused_stage1": 0, "int8_conv": 0},
+          f"real CLI kernel launches {counts}")
+    check(not skipped, f"real CLI summary grid not rendered: {skipped}")
+    files = sorted(os.listdir(os.path.join(logs, "real", "version_0", "checkpoints")))
+    check(files == ["best.ckpt", "best_val.json", "last.ckpt"], f"real CLI checkpoints {files}")
+    check(sorted(train_loss) == [1, REAL_STEPS] and sorted(val_loss) == [REAL_STEPS]
+          and all(np.isfinite(v) for v in (*train_loss.values(), *val_loss.values())),
+          f"real CLI losses {train_loss}, {val_loss}")
+    stamp = {int(ln.split()[1]): t for t, ln in out.lines
+             if ln.startswith("step ") and " loss " in ln}
+    cli_step_ms = (stamp[REAL_STEPS] - stamp[1]) / (REAL_STEPS - 1) * 1e3
+    log(f"CLI real:// train step at B={CLI_BATCH} (steps 2-{REAL_STEPS}, wall time between "
+        f"the trainer's synchronising log points; the trainer's 4 workers decoding "
+        f"{2 * CLI_BATCH} JPEGs a batch): "
+        f"{cli_step_ms:.3f} ms, phase 8's step {phase8_step_ms:.3f} ms [{card}]")
+
+    ft = CliRun("make_real_twoview_step_fns")
+    _, ft_s = ft.run(args + ["--name", "real_ft", "--max_steps", "2", "--val_every", "2",
+                             "--pretrained_checkpoint", pretrained, "--train_reg_only"])
+    ft_want = [2 * CLI_BATCH] * 2 + [2 * REAL_TEST_FRAMES, 2]
+    a = torch.load(pretrained, map_location="cpu", weights_only=True)["state_dict"]
+    b = torch.load(os.path.join(logs, "real_ft", "version_0", "checkpoints", "last.ckpt"),
+                   map_location="cpu", weights_only=True)["state_dict"]
+    trunk = trunk_tensors(a)
+    kept = sum(torch.equal(v, b[k]) for k, v in trunk.items())
+    heads = [k for k in a if k.startswith(("model.fc1", "model.fc2", "model.decpose",
+                                           "model.decshape"))]
+    moved = sum(not torch.equal(a[k], b[k]) for k in heads)
+    log(f"CLI real:// --train_reg_only from {os.path.basename(pretrained)} (2 steps): "
+        f"{ft_s:.1f} s, skinning by bodies {ft.bodies}; trunk tensors bit-equal {kept} of "
+        f"{len(trunk)}, head tensors moved {moved} of {len(heads)} [{card}]")
+    check(ft.bodies == ft_want, f"reg-only skinning launches by bodies {ft.bodies}")
+    check(len(trunk) == 159 and kept == len(trunk), f"reg-only: trunk kept {kept}/{len(trunk)}")
+    check(len(heads) > 0 and moved == len(heads),
+          f"reg-only: heads moved {moved}/{len(heads)}")
+    return {"seconds": run_s, "skinning_bodies": cli.bodies, "launches_per_call": per_call,
+            "launches": counts["lbs_skinning"], "save_s": cli.save_s,
+            "summary_s": cli.summary_s, "train_loss": train_loss, "val_loss": val_loss,
+            "step_ms": cli_step_ms, "phase8_step_ms": phase8_step_ms,
+            "reg_only": {"seconds": ft_s, "launches": len(ft.bodies), "trunk_kept": kept,
+                         "heads_moved": moved, "heads": len(heads)}}
+
+
+def phase_real(dev, tmp, card, smplx_params, phase8_step_ms, pretrained):
+    """Phase 11, the real-data self-supervised fine-tune on a synthetic DJI
+    capture of REAL_TRAIN_FRAMES + REAL_TEST_FRAMES 1920×1080 frames."""
+    from airpose_tpu_torch.data.fake_real import write_fake_real_capture
+
+    root = os.path.join(tmp, "capture")
+    t = time.perf_counter()
+    write_fake_real_capture(root, REAL_TRAIN_FRAMES + REAL_TEST_FRAMES)
+    log(f"synthetic DJI capture: {REAL_TRAIN_FRAMES + REAL_TEST_FRAMES} frames a machine "
+        f"written in {time.perf_counter() - t:.1f} s")
+    ds, idx, data = phase_real_data(dev, root, card)
+    batch = real_batch(ds, idx, dev)
+    steps = phase_real_steps(dev, smplx_params, batch, card)
+    del batch
+    return {"data": data, "steps": steps,
+            "cli": phase_real_cli(tmp, root, card, phase8_step_ms, pretrained)}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1488,9 +1928,17 @@ def main():
         phase10 = {"cli": phase_cli(dev, tmp, card, train["step_ms"]),
                    "pipeline": phase_pipeline(dev, card),
                    "readers": phase_readers(dev, tmp, smplx_params, card)}
-    phase10["seconds"] = time.perf_counter() - t10
-    log(f"phase 10: {phase10['seconds']:.1f} s [{card}]")
-    log(json.dumps({"phase10": phase10}))
+        phase10["seconds"] = time.perf_counter() - t10
+        log(f"phase 10: {phase10['seconds']:.1f} s [{card}]")
+        log(json.dumps({"phase10": phase10}))
+        torch.cuda.empty_cache()
+        t11 = time.perf_counter()
+        # the README's chain warm-starts from phase 10's run (its last.ckpt, step 30)
+        phase11 = phase_real(dev, tmp, card, smplx_params, train["step_ms"], os.path.join(
+            tmp, "logs", "smoke", "version_0", "checkpoints", "last.ckpt"))
+    phase11["seconds"] = time.perf_counter() - t11
+    log(f"phase 11: {phase11['seconds']:.1f} s [{card}]")
+    log(json.dumps({"phase11": phase11}))
     # launches: kernel launches in the main path's run of the chain that uses
     # each kernel (int8_block: its 42 conv launches, beside its 13 block calls)
     launches["int8_conv"] = int8_launches["int8"]["int8_conv"]
@@ -1516,6 +1964,21 @@ def main():
         "CLI train step": per_call["train"], "CLI val batch": per_call["val"],
         "CLI summary grid": per_call["grid"], "CLI set-up": per_call["set-up"],
         "precompute_canonical_gt of 300 bodies": phase10["readers"]["precompute_launches"]}
+    # launches on phase 11's paths, each counted in the run: one a real step
+    # (60 bodies two-view, 30 single-view), one a val batch and a grid of the
+    # real CLI run, and the reg-only fine-tune's
+    real, real_cli = phase11["steps"], phase11["cli"]
+    kernels[0]["phase11_launches"] = {
+        "real two-view train step (bodies)": real["twoview"]["skinning_bodies_a_step"],
+        "hmr_camswap_difffl train step (bodies)":
+            real["hmr_camswap_difffl"]["skinning_bodies_a_step"],
+        "real copenet_twoview_sep train step (bodies)":
+            real["copenet_twoview_sep"]["skinning_bodies_a_step"],
+        "CLI real:// run of 10 steps and 1 val pass": real_cli["launches"],
+        "CLI real:// train step": real_cli["launches_per_call"]["train"],
+        "CLI real:// val batch": real_cli["launches_per_call"]["val"],
+        "CLI real:// summary grid": real_cli["launches_per_call"]["grid"],
+        "CLI real:// --train_reg_only run of 2 steps": real_cli["reg_only"]["launches"]}
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,temperature.gpu,"
          "power.draw", "--format=csv"],

@@ -18,7 +18,8 @@ from airpose_tpu_torch.entry import entry
 from airpose_tpu_torch.ops import _build
 from airpose_tpu_torch.perception import bench_inputs, build_perception
 from airpose_tpu_torch.models import family_init_args, mean_init_state
-from airpose_tpu_torch.train import make_singleview_step_fns, make_twoview_step_fns
+from airpose_tpu_torch.train import (make_real_singleview_step_fns, make_real_twoview_step_fns,
+                                     make_singleview_step_fns, make_twoview_step_fns)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "airpose_tpu_torch"
@@ -41,11 +42,14 @@ def test_import_pulls_in_no_jax():
 
 
 def test_data_and_trainer_import_neither_jax_nor_cv2():
-    """The readers import OpenCV only to decode images and h5py only to read
-    H36M's cameras, so the trainer starts where neither is installed."""
+    """The readers import OpenCV only to decode images (and the DJI reader
+    to read its calib yml) and h5py only to read H36M's cameras, so the
+    trainer starts where neither is installed."""
     code = (
         "import sys\n"
         "import airpose_tpu_torch.data, airpose_tpu_torch.train.trainer\n"
+        "import airpose_tpu_torch.data.real, airpose_tpu_torch.data.aircap\n"
+        "import airpose_tpu_torch.data.fake_real, airpose_tpu_torch.bodymodel.vposer\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',"
         " 'h5py', 'airpose_tpu')]\n"
         "assert not bad, bad\n"
@@ -82,6 +86,8 @@ def test_entry_points_raise_without_cuda():
                lambda: resolve_device("cuda"), lambda: batch_slice({}, 0, 1),
                lambda: make_twoview_step_fns(None, None, TrainConfig(), None),
                lambda: make_singleview_step_fns(None, None, TrainConfig(), None, "hmr"),
+               lambda: make_real_twoview_step_fns(None, None, None, TrainConfig(), None),
+               lambda: make_real_singleview_step_fns(None, None, None, TrainConfig(), None),
                lambda: family_init_args("hmr"), mean_init_state):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn()

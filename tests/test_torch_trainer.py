@@ -1,8 +1,8 @@
 """The port's trainer CLI on the CPU (``--platform cpu``, tiny shapes, the
 bf16 trunk the CLI builds) on synthetic://: checkpoints, resume and the
 exit-3 deadline; every family; the warm starts and the options; and the
-rejections (wrong family, real:// and its flags, no CUDA). The on-disk sources are in
-tests/test_torch_trainer_sources.py.
+rejections (wrong family, a malformed mixed://, no CUDA). The on-disk sources are in
+tests/test_torch_trainer_sources.py, real:// in tests/test_torch_real_trainer.py.
 
 The metrics writer is the JSON-lines one (``_JsonlWriter``): importing
 TensorBoard here loads TensorFlow (~14 s a process), which no check needs.
@@ -203,8 +203,6 @@ def test_body_only_verts_and_debug_nans(tmp_path, capsys):
 
 
 def test_refusals(tmp_path):
-    with pytest.raises(SystemExit, match="item 8"):
-        trainer.main(cli(tmp_path, datapath=f"real://{tmp_path}"))
     with pytest.raises(SystemExit, match="exactly two kind=path"):
         trainer.main(cli(tmp_path, datapath="mixed://h36m=/x"))
     with pytest.raises(SystemExit):
@@ -212,13 +210,6 @@ def test_refusals(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             trainer.main(cli(tmp_path, platform=None))
-
-
-@pytest.mark.parametrize("flag", [["--vposer_ckpt", "v.pt"], ["--train_frames", "0", "100"],
-                                  ["--test_frames", "100", "200"]])
-def test_real_only_flags_refused(flag, tmp_path):
-    with pytest.raises(SystemExit, match=f"{flag[0]} only apply to real://.*item 8"):
-        trainer.main(cli(tmp_path, *flag))
 
 
 def test_flags_and_defaults_match_jax():
