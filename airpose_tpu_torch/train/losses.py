@@ -166,17 +166,18 @@ def twoview_loss(pred_pose: torch.Tensor, pred_betas: torch.Tensor,
 
 def joints_loss(pred_pose: torch.Tensor, pred_betas: torch.Tensor,
                 batch: Dict[str, torch.Tensor], smplx_params: SMPLXParams,
-                w: LossWeights, trans_scale: float = C.TRANS_SCALE
-                ) -> Tuple[torch.Tensor, Metrics]:
+                w: LossWeights, trans_scale: float = C.TRANS_SCALE,
+                use_kernels: bool = True) -> Tuple[torch.Tensor, Metrics]:
     """Joints-only supervised two-view loss for H36M-style GT (cam-frame 3D
     joints and their 2D projections, no SMPL-X parameters): kp2d with each
     camera's own intrinsics, pelvis-aligned kp3d plus the cross-view
-    canonical-joint term, the pelvis as translation, the betas prior."""
+    canonical-joint term, the pelvis as translation, the betas prior.
+    ``use_kernels=False`` skins with the plain version on any device."""
     B = pred_pose.shape[0]
     trans = pred_pose[..., :3] / trans_scale
     rotmat = rot6d_to_rotmat(pred_pose[..., 3:].reshape(B, 2, 22, 6))
 
-    _, joints = canonical_smplx_two_view(smplx_params, pred_betas, rotmat)
+    _, joints = canonical_smplx_two_view(smplx_params, pred_betas, rotmat, use_kernels)
     intr = batch["intr"]
     focal = torch.stack([intr[..., 0, 0], intr[..., 1, 1]], dim=-1)  # (B, 2, 2)
     cam_j, j2d = cam_frame_and_project(rotmat[:, :, 0], trans, joints, intr, focal)

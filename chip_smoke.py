@@ -98,7 +98,31 @@ Phases, each of which exits non-zero on failure:
      counted in the call each ran in, checkpoints written and the grid
      rendered, the CLI step beside phase 8's; then a 2-step
      --pretrained_checkpoint (phase 10's last.ckpt) --train_reg_only run:
-     the trunk bit-equal to the pretrained one, the heads moved.
+     the trunk bit-equal to the pretrained one, the heads moved;
+ 12. the eval CLI and AirPose+, in phase 10's temporary directory (its
+     10,475-vertex npz, last.ckpt and AerialPeople fixture, whose windows are
+     written as JPEGs here; phase 11's capture), the f32 trunk the eval CLI
+     builds: (a) each compile pass of airpose_tpu_torch.eval.compile_results
+     at B = 30 of 224² (compile_twoview --save-full and --int8 on the 300
+     records, compile_singleview hmr on synthetic://64,
+     compile_real_twoview --save-full and compile_real_singleview per camera
+     on the 30 test frames at B = 16, a padded tail) with the skinning
+     kernel and again with the plain skinning: skinning launches by bodies
+     and int8 conv launches against the lists the code gives, the body
+     fields within EVAL_BODY_REL, the metrics within EVAL_METRIC_REL, the
+     --int8 trunk's features equal to the plain int8 trunk's, seconds and
+     frames/s; (b) AirPose+ (BAConfig(): 100 + 200 Adam iterations) on a
+     2,000-frame chunk of bodies decoded from the random VPoser prior: the
+     trace finite and falling below half its start, no skinning in the
+     joints-only inner loop, each stage's ms an iteration with its device
+     work, the export of 2,000 bodies with the kernel against the plain
+     skinning and its ms, skinning at B = 2,000 as in phase 2, the card's
+     trace against the CPU's on 24 frames; (c) `python -m
+     airpose_tpu_torch.eval.compile_results` on real:// as a subprocess,
+     AirPose+ on its pkl through the bundle_adjust CLI's code, chunked
+     across a chunk boundary and --sharded, and the figures' metric table
+     (the plots, without matplotlib on the card machine, are left out),
+     every output's shapes checked.
 Prints the kernels as one JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA device is available.
@@ -213,6 +237,20 @@ VPOSER_ENCODE_REL, VPOSER_DECODE_REL = 1e-5, 1e-4
 REAL_BOUNDS = {"loss": 0.0, "regressor": 0.0, "trunk": 0.0}
 REAL_TRAIN_FRAMES, REAL_TEST_FRAMES = 48, 30   # the synthetic DJI capture
 REAL_STEPS = 10
+# Phase 12. The eval passes with the skinning kernel against the plain
+# skinning: the same predictions skinned in another f32 summation order
+# (phases 10-11 measured 1.1-1.8e-7 on the canonical GT and the eval
+# vertices); the metrics read the kinematic joints, which skinning does not
+# reach, so they agree to f32 ulps.
+EVAL_BODY_REL, EVAL_METRIC_REL = 2e-7, 1e-6
+REAL_EVAL_BATCH = 16        # the 30 test frames: 16 and a padded tail of 14
+BA_FRAMES = 2000            # one chunk of the reference's bundle_adj.py
+BA_STAGE_ITERS = 20         # iterations of each stage's timed run
+BA_CLI_ITERS = (20, 40)     # the bundle_adjust CLI runs of phase 12c (BA_FRAMES runs 100 + 200)
+# AirPose+ on the card against the CPU at 24 frames, 10 + 20 iterations:
+# f32 sums in other orders, which Adam's normalised steps amplify
+# (tests/test_torch_bundle_adjust.py holds the port to JAX at rtol 2e-4).
+BA_SMALL, BA_CPU_RTOL = 24, 1e-3
 
 
 def log(msg):
@@ -1427,8 +1465,8 @@ def phase_pipeline(dev, card):
 
 def write_aerialpeople(root, n):
     """An AerialPeople layout of n sample pkls (sample 0 passes the schema
-    check) with empty image files for the path probe: the card has no JPEG
-    decoder, so the windows are filled from a seed."""
+    check) with empty image files for the path probe (phase 10 fills the
+    windows from a seed; phase 12 writes them, write_aerialpeople_windows)."""
     rng = np.random.default_rng(0)
     for d in ("dataset", "pkls", "imgs"):
         os.makedirs(os.path.join(root, d), exist_ok=True)
@@ -1457,6 +1495,23 @@ def write_aerialpeople(root, n):
     for split in ("train", "test"):
         with open(os.path.join(root, "dataset", f"{split}_pkls.pkl"), "wb") as f:
             pickle.dump(files, f)
+
+
+def write_aerialpeople_windows(root):
+    """Each sample's two image files as the JPEGs the AerialPeople layout
+    stores: the person box ±200 px window, a smooth pattern from a seed."""
+    import cv2
+
+    rng = np.random.default_rng(12)
+    files = pickle.load(open(os.path.join(root, "dataset", "test_pkls.pkl"), "rb"))
+    for path in files:
+        rec = pickle.load(open(path, "rb"))
+        for cam in (0, 1):
+            (x0, y0), (x1, y1) = np.asarray(rec[f"bb{cam}"], np.float32)
+            w, h = int(x1 - x0) + 400, int(y1 - y0) + 400
+            coarse = rng.integers(0, 256, (h // 32 + 2, w // 32 + 2, 3)).astype(np.uint8)
+            cv2.imwrite(os.path.join(root, rec[f"im{cam}"]),
+                        cv2.resize(coarse, (w, h), interpolation=cv2.INTER_LINEAR))
 
 
 def phase_readers(dev, tmp, smplx_params, card):
@@ -1874,6 +1929,416 @@ def phase_real(dev, tmp, card, smplx_params, phase8_step_ms, pretrained):
             "cli": phase_real_cli(tmp, root, card, phase8_step_ms, pretrained)}
 
 
+def eval_model(dev, family, ckpt=None):
+    """A family's f32 model, as compile_results.main builds it (seed 0, or
+    ``ckpt`` loaded with strict=True), and its eval TrainState."""
+    from airpose_tpu_torch.config import TrainConfig
+    from airpose_tpu_torch.models import MODEL_REGISTRY
+    from airpose_tpu_torch.train import TrainState, load_reference_state_dict
+    from airpose_tpu_torch.train.state import model_variables
+
+    model = MODEL_REGISTRY[family](iters=TrainConfig().reg_iters)
+    if ckpt:
+        load_reference_state_dict(model, torch.load(ckpt, map_location="cpu",
+                                                    weights_only=False), family)
+    model = model.to(dev)
+    return model, TrainState(step=0, **model_variables(model), opt_state=None)
+
+
+def body_rel(got, want):
+    """max |kernel − plain| / max |plain| over the outputs' body fields
+    (skinned vertices, cam-frame joints and their projections)."""
+    rel = 0.0
+    for g, w in zip(got, want):
+        for k, v in w["output"].items():
+            if k.startswith(("pred_vertices", "pred_j3d", "pred_j2d")):
+                rel = max(rel, float(np.abs(g["output"][k] - v).max() / np.abs(v).max()))
+    return rel
+
+
+def phase_eval_passes(dev, tmp, card):
+    """Phase 12a: each compile pass with the skinning kernel (its launches
+    by bodies, the int8 conv's launches and its seconds) and again with the
+    plain skinning, in one process; the int8 features against the plain
+    int8 trunk."""
+    import airpose_tpu_torch.eval.compile_results as cr
+    from airpose_tpu_torch.bodymodel import init_vposer_params, load_smplx_npz
+    from airpose_tpu_torch.config import TrainConfig
+    from airpose_tpu_torch.data import (AerialPeopleDataset, CopenetRealDataset,
+                                        make_synthetic_dataset)
+    from airpose_tpu_torch.ops import int8_trunk as it
+
+    smplx = load_smplx_npz(tmp).to(dev)   # phase 10's 10,475-vertex npz
+    vposer = init_vposer_params(0).to(dev)
+    ckpt = os.path.join(tmp, "logs", "smoke", "version_0", "checkpoints", "last.ckpt")
+    capture = os.path.join(tmp, "capture")
+    B, RB = CLI_BATCH, REAL_EVAL_BATCH
+    cfg = TrainConfig(batch_size=B)
+    twoview, twoview_state = eval_model(dev, "copenet_twoview", ckpt)
+    hmr, hmr_state = eval_model(dev, "hmr")
+
+    t = time.perf_counter()
+    write_aerialpeople_windows(os.path.join(tmp, "aerialpeople"))
+    log(f"AerialPeople fixture: its windows written as JPEGs in {time.perf_counter() - t:.1f} s")
+    aerial = AerialPeopleDataset(os.path.join(tmp, "aerialpeople"), "test")
+    n_aerial = len(aerial)
+    with skinning_bodies() as bodies:
+        aerial.precompute_canonical_gt(smplx)
+    chunks = [min(256, n_aerial - s) for s in range(0, n_aerial, 256)]
+    check(bodies == chunks, f"precompute_canonical_gt skinned {bodies}, expected {chunks}")
+    synthetic = make_synthetic_dataset(smplx, CLI_SAMPLES, seed=7)   # main's synthetic://64
+    real = CopenetRealDataset(capture, frame_range=range(REAL_TRAIN_FRAMES,
+                                                         REAL_TRAIN_FRAMES + REAL_TEST_FRAMES))
+    real_cams = [CopenetRealDataset(capture, first_cam=cam, frame_range=real.frames)
+                 for cam in (0, 1)]
+
+    def batches(n, b):
+        return -(-n // b)
+
+    nb = batches(n_aerial, B)
+    full_aerial = [2 * B] * 3 * nb + [2 * n_aerial] * 2   # loss, 2 body fields; metrics
+    nr = batches(REAL_TEST_FRAMES, RB)
+    passes = {
+        "compile_twoview AerialPeople --save-full": (
+            lambda uk: cr.compile_twoview(twoview_state, twoview, smplx,
+                                          cr.aerialpeople_batches(aerial, B, CLI_IMG, dev), cfg,
+                                          save_full=True, use_kernels=uk, device=dev),
+            n_aerial, full_aerial, 0),
+        "compile_twoview AerialPeople --save-full --int8": (
+            lambda uk: cr.compile_twoview(twoview_state, twoview, smplx,
+                                          cr.aerialpeople_batches(aerial, B, CLI_IMG, dev), cfg,
+                                          save_full=True, int8=True, use_kernels=uk, device=dev),
+            n_aerial, full_aerial, 52 * (2 + nb)),   # calibration, clip report, each batch
+        "compile_singleview hmr synthetic://64": (
+            lambda uk: cr.compile_singleview(hmr_state, hmr, smplx,
+                                             cr.synthetic_batches(synthetic, B), cfg, "hmr",
+                                             use_kernels=uk, device=dev),
+            CLI_SAMPLES, [B] * batches(CLI_SAMPLES, B) + [CLI_SAMPLES] * 2, 0),
+        "compile_real_twoview real:// --save-full": (
+            lambda uk: cr.compile_real_twoview(twoview_state, twoview, smplx, vposer, real, RB,
+                                               cfg, save_full=True, out_size=CLI_IMG,
+                                               use_kernels=uk, device=dev),
+            REAL_TEST_FRAMES, [2 * RB] * 3 * nr + [2 * REAL_TEST_FRAMES], 0),
+        **{f"compile_real_singleview real:// cam{cam}": (
+            lambda uk, cam=cam: cr.compile_real_singleview(hmr_state, hmr, smplx, vposer,
+                                                           real_cams[cam], RB, cfg, cam,
+                                                           out_size=CLI_IMG, use_kernels=uk,
+                                                           device=dev),
+            REAL_TEST_FRAMES, [RB] * nr, 0) for cam in (0, 1)},
+    }
+    shims = []
+
+    class RecordedInt8Inference(it.Int8Inference):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            shims.append(self)
+
+    source_s = [0.0]
+
+    def timed(batches):
+        """The batch source with the host time each batch takes to make."""
+        it_ = iter(batches)
+        while True:
+            t_ = time.perf_counter()
+            try:
+                b = next(it_)
+            except StopIteration:
+                return
+            source_s[0] += time.perf_counter() - t_
+            yield b
+
+    sources = {f: getattr(cr, f)
+               for f in ("aerialpeople_batches", "synthetic_batches", "real_batches")}
+    out = {"precompute_canonical_gt": bodies}
+    for name, (run, frames, want_bodies, want_int8) in passes.items():
+        reset_kernel_counts()
+        source_s[0] = 0.0
+        with skinning_bodies() as bodies, \
+                mock.patch.object(it, "Int8Inference", RecordedInt8Inference), \
+                contextlib.ExitStack() as stack:
+            for f, source in sources.items():
+                stack.enter_context(mock.patch.object(
+                    cr, f, lambda *a, source=source, **kw: timed(source(*a, **kw))))
+            t = time.perf_counter()
+            outputs, metrics = run(True)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        counts = kernel_counts()
+        with mock.patch.object(it, "Int8Inference", RecordedInt8Inference):
+            plain_outputs, plain_metrics = run(False)
+        rel_body = body_rel(outputs, plain_outputs)
+        rel_metric = max(abs(metrics[k] - v) / max(abs(v), 1e-30)
+                         for k, v in plain_metrics.items())
+        rows = sum(len(next(iter(o["output"].values()))) for o in outputs)
+        log(f"{name}: {rows} frames in {secs:.2f} s ({frames / secs:.1f} frames/s; making the "
+            f"batches {source_s[0]:.2f} s of it on the host), metrics "
+            f"{ {k: round(v, 4) for k, v in metrics.items()} }; skinning by bodies {bodies}, "
+            f"launches {counts}; kernel vs plain: body fields {rel_body:.3e} (bound "
+            f"{EVAL_BODY_REL}), metrics {rel_metric:.3e} (bound {EVAL_METRIC_REL}) [{card}]")
+        check(rows == frames, f"{name}: {rows} rows, expected {frames}")
+        check(bodies == want_bodies, f"{name}: skinned {bodies}, expected {want_bodies}")
+        check(counts == {"lbs_skinning": len(want_bodies), "fused_stage1": 0,
+                         "int8_conv": want_int8}, f"{name}: launches {counts}")
+        check(all(np.isfinite(v) for v in metrics.values())
+              and all(np.isfinite(a).all() for o in outputs for a in o["output"].values()),
+              f"{name}: non-finite outputs or metrics {metrics}")
+        check(rel_body <= EVAL_BODY_REL and rel_metric <= EVAL_METRIC_REL,
+              f"{name}: kernel vs plain {rel_body}, metrics {rel_metric}")
+        out[name] = {"seconds": secs, "frames_per_s": frames / secs, "source_s": source_s[0],
+                     "metrics": metrics,
+                     "skinning_launches": len(bodies), "int8_conv_launches": counts["int8_conv"],
+                     "body_rel": rel_body, "metric_rel": rel_metric}
+
+    # the int8 pass's trunk against the plain int8 trunk on its first batch
+    shim = shims[0]
+    images = next(iter(cr.aerialpeople_batches(aerial, B, CLI_IMG, dev)))["images"]
+    flat = images.reshape((-1,) + tuple(images.shape[2:]))
+    with torch.no_grad():
+        got = shim._features(images).reshape(flat.shape[0], -1)
+        want = it.resnet50_int8_infer(shim.qparams[0], flat, act_scales=shim.act_scales[0],
+                                      use_kernels=False)
+    same = torch.equal(got, want)
+    log(f"--int8 pass: the int8 trunk's features on {flat.shape[0]} crops "
+        f"{'equal to' if same else 'DIFFER from'} its plain version's (max |diff| "
+        f"{(got - want).abs().max().item():.3e}) [{card}]")
+    check(same and len(shims) == 2, "the --int8 pass's features differ from the plain int8 trunk")
+    out["int8_features_equal"] = same
+    return out
+
+
+def ba_problem(smplx, vposer, n, seed, dev):
+    """tests/test_bundle_adjust.py's problem at n frames: a body decoded from
+    the VPoser prior at z ~ N(0, 0.3²), seen by two cameras, its keypoints
+    the exact projections with confidence 1, and the init perturbed; as
+    numpy (init fields, keypoints (n, 2, 24, 3), intr (2, 3, 3))."""
+    from scipy.spatial.transform import Rotation
+
+    from airpose_tpu_torch.bodymodel import vposer_decode
+    from airpose_tpu_torch.optim import joints_only_forward
+
+    rng = np.random.default_rng(seed)
+    z_true = rng.normal(size=(n, 32)).astype(np.float32) * 0.3
+    with torch.no_grad():
+        theta = vposer_decode(vposer, torch.from_numpy(z_true).to(dev))["pose_body_matrot"]
+        joints = joints_only_forward(smplx, torch.zeros(n, 10, device=dev),
+                                     theta)[:, :24].cpu().numpy()
+    phi_rm = np.stack([np.stack([Rotation.from_euler("y", 0.1 * v + 0.02 * i).as_matrix()
+                                 for v in (0, 1)]) for i in range(n)]).astype(np.float32)
+    tau = np.tile(np.asarray([[0.0, 0.0, 6.0]], np.float32), (n, 2, 1))
+    tau[:, 1, 0] = 0.5
+    intr = np.asarray([[[1475.0, 0, 960], [0, 1475.0, 540], [0, 0, 1]]] * 2, np.float32)
+    cam_j = np.einsum("nvij,nkj->nvki", phi_rm, joints) + tau[:, :, None]
+    uv = cam_j[..., :2] / cam_j[..., 2:] * 1475.0 + intr[0, :2, 2]
+    kp = np.concatenate([uv, np.ones((n, 2, 24, 1))], axis=-1).astype(np.float32)
+    init = (z_true + 0.3 * rng.normal(size=z_true.shape).astype(np.float32),
+            phi_rm[..., :2].reshape(n, 2, 6) + 0.05 * rng.normal(size=(n, 2, 6)).astype(
+                np.float32),
+            tau + 0.2 * rng.normal(size=tau.shape).astype(np.float32), np.zeros(10, np.float32))
+    return init, kp, intr
+
+
+def run_ba(smplx, vposer, problem, cfg, dev):
+    from airpose_tpu_torch.optim import BAState, bundle_adjust
+
+    init, kp, intr = problem
+    kp_t = torch.from_numpy(kp).to(dev)
+    return bundle_adjust(smplx, vposer, BAState(*(torch.from_numpy(a).to(dev) for a in init)),
+                         kp_t, kp_t, torch.from_numpy(intr).to(dev), cfg)
+
+
+def phase_airpose_plus(dev, card):
+    """Phase 12b: AirPose+ on a 2,000-frame chunk at BAConfig() (the
+    joints-only inner loop: no skinning), each stage's ms an iteration with
+    its device work, the export at 2,000 bodies kernel vs plain and its ms,
+    skinning at B = 2,000 as phase 2 times it, and the card's trace against
+    the CPU's on a 24-frame problem."""
+    from airpose_tpu_torch.bodymodel import init_vposer_params, synthetic_smplx_params
+    from airpose_tpu_torch.optim import BAConfig, export_results
+
+    smplx_cpu, vposer_cpu = synthetic_smplx_params(), init_vposer_params(0)
+    smplx, vposer = smplx_cpu.to(dev), vposer_cpu.to(dev)
+    problem = ba_problem(smplx, vposer, BA_FRAMES, 0, dev)
+    cfg = BAConfig()
+    reset_kernel_counts()
+    with skinning_bodies() as bodies:
+        t = time.perf_counter()
+        state, info = run_ba(smplx, vposer, problem, cfg, dev)
+        secs = time.perf_counter() - t
+    trace = info["trace"]
+    log(f"AirPose+ at {BA_FRAMES} frames, {cfg.iters_stage1} + {cfg.iters_stage2} iterations "
+        f"(lr {cfg.lr}): {secs:.2f} s, trace {trace[0]:.4f} → {trace[cfg.iters_stage1 - 1]:.4f} "
+        f"→ {trace[-1]:.4f}; final terms { {k: round(v, 5) for k, v in info.items() if k != 'trace'} }; "
+        f"skinning launches {len(bodies)}, kernels {kernel_counts()} [{card}]")
+    check(trace.shape == (cfg.iters_stage1 + cfg.iters_stage2,) and np.isfinite(trace).all(),
+          f"AirPose+ trace {trace.shape}, finite {np.isfinite(trace).all()}")
+    check(trace[-1] < 0.5 * trace[0], f"AirPose+ trace {trace[0]} → {trace[-1]}")
+    check(bodies == [] and kernel_counts()["int8_conv"] == 0,
+          f"the AirPose+ inner loop skinned {bodies}")
+
+    stages = {}
+    for stage, scfg in (("stage 1 (z frozen)", BAConfig(iters_stage1=BA_STAGE_ITERS,
+                                                         iters_stage2=0)),
+                        ("stage 2", BAConfig(iters_stage1=0, iters_stage2=BA_STAGE_ITERS))):
+        ms = wall_ms(lambda scfg=scfg: run_ba(smplx, vposer, problem, scfg, dev), iters=1,
+                     warmup=1) / BA_STAGE_ITERS
+        events, prof_ms = device_work(lambda scfg=scfg: run_ba(smplx, vposer, problem, scfg,
+                                                               dev), 1)
+        busy = sum(e.time_range.elapsed_us() for e in events) / 1e3 / BA_STAGE_ITERS
+        by_name = {}
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        stages[stage] = {"ms_per_iteration": ms, "busy_ms_per_iteration": busy,
+                         "device_events_per_iteration": len(events) / BA_STAGE_ITERS,
+                         "idle_share": 1 - busy / ms}
+        log(f"AirPose+ {stage} at {BA_FRAMES} frames: {ms:.3f} ms an iteration (a run of "
+            f"{BA_STAGE_ITERS}), device busy {busy:.3f} ms in "
+            f"{len(events) / BA_STAGE_ITERS:.0f} kernels and copies, idle share "
+            f"{1 - busy / ms:.3f}; top device time a run: "
+            + "; ".join(f"{t_:.2f} ms {n[:60]}" for n, t_ in top) + f" [{card}]")
+
+    with skinning_bodies() as bodies:
+        got = export_results(smplx, vposer, state)
+    want = export_results(smplx, vposer, state, use_kernels=False)
+    rel = max(float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+              for k in ("verts0", "verts1"))
+    export_ms = wall_ms(lambda: export_results(smplx, vposer, state), iters=2, warmup=1)
+    log(f"export_results at {BA_FRAMES} bodies: skinned {bodies}; kernel vs plain max relative "
+        f"{rel:.3e} (bound {EVAL_BODY_REL}); {export_ms:.2f} ms (its "
+        f"{got['verts0'].nbytes * 2 / 1e6:.0f} MB of vertices copied to the host included) "
+        f"[{card}]")
+    check(bodies == [BA_FRAMES] and rel <= EVAL_BODY_REL,
+          f"export_results: skinned {bodies}, kernel vs plain {rel}")
+    check(all(np.array_equal(got[k], want[k]) for k in ("pose_body", "beta", "cam1_wrt_cam0")),
+          "export_results: the fields skinning does not reach differ between runs")
+
+    # skinning at the export's shape, timed as phase 2 times it
+    rng = np.random.default_rng(5)
+    rel_tf = rng.normal(size=(BA_FRAMES, 55, 4, 4)).astype(np.float32) * 0.3
+    rel_tf[:, :, 3] = [0, 0, 0, 1]
+    p = torch.from_numpy(rng.normal(size=(BA_FRAMES, 10475, 3)).astype(np.float32)).to(dev)
+    at_b2000 = skinning_at(smplx.lbs_weights, torch.from_numpy(rel_tf).to(dev), p)
+    del p
+
+    small = ba_problem(smplx, vposer, BA_SMALL, 1, dev)
+    scfg = BAConfig(iters_stage1=10, iters_stage2=20)
+    _, card_info = run_ba(smplx, vposer, small, scfg, dev)
+    _, cpu_info = run_ba(smplx_cpu, vposer_cpu, small, scfg, "cpu")
+    trace_rel = float(np.max(np.abs(card_info["trace"] - cpu_info["trace"])
+                             / np.abs(cpu_info["trace"])))
+    log(f"AirPose+ at {BA_SMALL} frames, 10 + 20 iterations: the card's trace against the "
+        f"CPU's max relative {trace_rel:.3e} (bound {BA_CPU_RTOL}) [{card}]")
+    check(trace_rel <= BA_CPU_RTOL, f"AirPose+ card vs CPU trace {trace_rel}")
+    return {"seconds": secs, "trace_first": float(trace[0]), "trace_last": float(trace[-1]),
+            "final": {k: v for k, v in info.items() if k != "trace"}, "stages": stages,
+            "export_ms": export_ms, "export_rel": rel, "export_launches": len(bodies),
+            "trace_vs_cpu_rel": trace_rel}, at_b2000
+
+
+def phase_cli_chain(tmp, card):
+    """Phase 12c: `python -m airpose_tpu_torch.eval.compile_results` on
+    real:// as a subprocess; AirPose+ on its pkl through the bundle_adjust
+    CLI's own code, chunked across a chunk boundary and --sharded; the
+    figures over the pkl and its metrics. Without matplotlib (the card
+    machine has none) the two CLIs' plots are left out: AirPose+ runs
+    ``bundle_adjust.optimize`` (main up to its result pkl) and the figures
+    ``load_results`` and ``write_metric_table`` (main but the plot)."""
+    import importlib.util
+
+    from airpose_tpu_torch.eval import figures
+    ba = importlib.import_module("airpose_tpu_torch.optim.bundle_adjust")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    capture = os.path.join(tmp, "capture")
+    ckpt = os.path.join(tmp, "logs", "smoke", "version_0", "checkpoints", "last.ckpt")
+    ap = os.path.join(tmp, "airpose.pkl")
+    frames = ["--test_frames", str(REAL_TRAIN_FRAMES), str(REAL_TRAIN_FRAMES + REAL_TEST_FRAMES)]
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "airpose_tpu_torch.eval.compile_results",
+                        "--model", "copenet_twoview", "--datapath", f"real://{capture}",
+                        *frames, "--ckpt", ckpt, "--smplx_model_dir", tmp, "--batch_size",
+                        str(REAL_EVAL_BATCH), "--save-full", "--out", ap],
+                       cwd=root, capture_output=True, text=True, timeout=300)
+    compile_s = time.perf_counter() - t
+    log(f"compile_results subprocess: exit {r.returncode} after {compile_s:.1f} s; output: "
+        + " | ".join(r.stdout.strip().splitlines()[-5:]) + f" [{card}]")
+    if r.returncode:
+        log(r.stderr[-3000:])
+    check(r.returncode == 0, f"compile_results subprocess exit {r.returncode}")
+    with open(ap, "rb") as f:
+        res = pickle.load(f)
+    with open(ap + ".metrics.json") as f:
+        metrics = json.load(f)
+    rows = sum(o["output"]["pred_pose0"].shape[0] for o in res[0])
+    first = res[0][0]["output"]
+    check(len(res) == 1 and rows == REAL_TEST_FRAMES
+          and first["pred_vertices_cam0"].shape == (REAL_EVAL_BATCH, 10475, 3)
+          and first["pred_j2d_cam1"].shape == (REAL_EVAL_BATCH, 127, 2)
+          and set(metrics) == {"test"} and metrics["test"]["robust_frames"] == REAL_TEST_FRAMES,
+          f"compile_results pkl: {rows} rows, {first['pred_vertices_cam0'].shape}, {metrics}")
+
+    plots = importlib.util.find_spec("matplotlib") is not None
+    common = ["--datapath", f"real://{capture}", "--airpose-pkl", ap, "--split", "test",
+              *frames, "--smplx_model_dir", tmp, "--iters1", str(BA_CLI_ITERS[0]),
+              "--iters2", str(BA_CLI_ITERS[1])]
+    out = {"compile_s": compile_s, "metrics": metrics["test"], "plots": plots}
+    for tag, extra, chunks in (("chunked", ["--chunk-size", str(REAL_EVAL_BATCH)], 2),
+                               ("sharded", ["--sharded"], 1)):
+        argv = common + ["--out", os.path.join(tmp, f"ba_{tag}"), *extra]
+        t = time.perf_counter()
+        if plots:
+            ba.main(argv)
+            pkl = os.path.join(tmp, f"ba_{tag}", "airpose_plus_test.pkl")
+        else:
+            _, _, pkl = ba.optimize(ba.build_parser().parse_args(argv))
+        secs = time.perf_counter() - t
+        with open(pkl, "rb") as f:
+            result = pickle.load(f)
+        n = REAL_TEST_FRAMES
+        shapes = {k: v.shape for k, v in result.items()}
+        log(f"bundle_adjust CLI {tag}: {secs:.2f} s; {shapes}; trace {result['trace'][0]:.4f} → "
+            f"{result['trace'][-1]:.4f} [{card}]")
+        check(shapes == {"z": (n, 32), "phi": (n, 2, 6), "tau": (n, 2, 3),
+                         "beta_per_chunk": (chunks, 10), "pose_body": (n, 21, 3),
+                         "cam1_wrt_cam0": (n, 4, 4), "trace": (sum(BA_CLI_ITERS) * chunks,)}
+              and all(np.isfinite(v).all() for v in result.values()),
+              f"bundle_adjust {tag} result {shapes}")
+        out[tag] = {"seconds": secs, "trace_first": float(result["trace"][0]),
+                    "trace_last": float(result["trace"][-1])}
+
+    figs = os.path.join(tmp, "figures")
+    entries = [f"AirPose={ap}"]
+    if plots:
+        figures.main(["--results", *entries, "--out", figs])
+    else:
+        os.makedirs(figs, exist_ok=True)
+        trajs, by_model = figures.load_results(entries)
+        check(trajs["AirPose"].shape == (REAL_TEST_FRAMES, 3), "figures trajectory")
+        figures.write_metric_table(by_model, figs)
+    table = open(os.path.join(figs, "metrics.md")).read()
+    log(f"figures (plots {'drawn' if plots else 'left out: no matplotlib'}):\n{table.strip()}")
+    check("AirPose/test" in table and "crossview_consistency" in table, f"metrics.md {table}")
+    return out
+
+
+def phase_eval(dev, tmp, card):
+    """Phase 12, the eval CLI and AirPose+, in phase 10's temporary
+    directory (its npz, last.ckpt and AerialPeople fixture; phase 11's
+    capture)."""
+    seconds, t = {}, time.perf_counter()
+    passes = phase_eval_passes(dev, tmp, card)
+    seconds["12a"], t = time.perf_counter() - t, time.perf_counter()
+    torch.cuda.empty_cache()
+    airpose_plus, at_b2000 = phase_airpose_plus(dev, card)
+    seconds["12b"], t = time.perf_counter() - t, time.perf_counter()
+    torch.cuda.empty_cache()
+    chain = phase_cli_chain(tmp, card)
+    seconds["12c"] = time.perf_counter() - t
+    log(f"phase 12 by part: {', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())} [{card}]")
+    return {"passes": passes, "airpose_plus": airpose_plus, "chain": chain,
+            "part_seconds": seconds}, at_b2000
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1936,9 +2401,16 @@ def main():
         # the README's chain warm-starts from phase 10's run (its last.ckpt, step 30)
         phase11 = phase_real(dev, tmp, card, smplx_params, train["step_ms"], os.path.join(
             tmp, "logs", "smoke", "version_0", "checkpoints", "last.ckpt"))
-    phase11["seconds"] = time.perf_counter() - t11
-    log(f"phase 11: {phase11['seconds']:.1f} s [{card}]")
-    log(json.dumps({"phase11": phase11}))
+        phase11["seconds"] = time.perf_counter() - t11
+        log(f"phase 11: {phase11['seconds']:.1f} s [{card}]")
+        log(json.dumps({"phase11": phase11}))
+        del smplx_params, batch, preds
+        torch.cuda.empty_cache()
+        t12 = time.perf_counter()
+        phase12, kernels[0]["at_b2000"] = phase_eval(dev, tmp, card)
+    phase12["seconds"] = time.perf_counter() - t12
+    log(f"phase 12: {phase12['seconds']:.1f} s [{card}]")
+    log(json.dumps({"phase12": phase12}))
     # launches: kernel launches in the main path's run of the chain that uses
     # each kernel (int8_block: its 42 conv launches, beside its 13 block calls)
     launches["int8_conv"] = int8_launches["int8"]["int8_conv"]
@@ -1979,6 +2451,20 @@ def main():
         "CLI real:// val batch": real_cli["launches_per_call"]["val"],
         "CLI real:// summary grid": real_cli["launches_per_call"]["grid"],
         "CLI real:// --train_reg_only run of 2 steps": real_cli["reg_only"]["launches"]}
+    # launches on phase 12's paths, each counted in its pass: skinning in
+    # the eval passes (the eval loss a batch, --save-full's two forwards a
+    # batch, the metrics), the readers' precompute and the AirPose+ export
+    # (none in its optimisation); the int8 conv in the --int8 pass
+    passes = phase12["passes"]
+    kernels[0]["phase12_launches"] = {
+        **{name: v["skinning_launches"] for name, v in passes.items()
+           if isinstance(v, dict) and "skinning_launches" in v},
+        "precompute_canonical_gt of 300 bodies": len(passes["precompute_canonical_gt"]),
+        "AirPose+ optimisation (2,000 frames, 300 iterations)": 0,
+        "export_results of 2,000 bodies": phase12["airpose_plus"]["export_launches"]}
+    next(k for k in kernels if k["name"] == "int8_conv")["phase12_launches"] = {
+        name: v["int8_conv_launches"] for name, v in passes.items()
+        if isinstance(v, dict) and v.get("int8_conv_launches")}
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,temperature.gpu,"
          "power.draw", "--format=csv"],

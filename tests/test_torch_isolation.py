@@ -3,6 +3,7 @@ JAX and nothing of airpose_tpu, and its entry points raise without CUDA
 instead of falling back to the CPU."""
 
 import ast
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -15,12 +16,14 @@ from airpose_tpu_torch import resolve_device
 from airpose_tpu_torch.config import TrainConfig
 from airpose_tpu_torch.data import batch_slice
 from airpose_tpu_torch.entry import entry
+from airpose_tpu_torch.eval import compile_results, figures
 from airpose_tpu_torch.ops import _build
 from airpose_tpu_torch.perception import bench_inputs, build_perception
 from airpose_tpu_torch.models import family_init_args, mean_init_state
 from airpose_tpu_torch.train import (make_real_singleview_step_fns, make_real_twoview_step_fns,
                                      make_singleview_step_fns, make_twoview_step_fns)
 
+bundle_adjust = importlib.import_module("airpose_tpu_torch.optim.bundle_adjust")
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "airpose_tpu_torch"
 MODULES = sorted(
@@ -88,10 +91,27 @@ def test_entry_points_raise_without_cuda():
                lambda: make_singleview_step_fns(None, None, TrainConfig(), None, "hmr"),
                lambda: make_real_twoview_step_fns(None, None, None, TrainConfig(), None),
                lambda: make_real_singleview_step_fns(None, None, None, TrainConfig(), None),
-               lambda: family_init_args("hmr"), mean_init_state):
+               lambda: family_init_args("hmr"), mean_init_state,
+               lambda: compile_results.compile_twoview(None, None, None, [], TrainConfig())):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_eval_and_airpose_plus_clis_raise_without_cuda(tmp_path):
+    """The eval CLI, AirPose+ and the figures take the card unless given
+    --platform cpu: without CUDA each raises before it reads any input."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    missing = str(tmp_path / "missing")
+    for main, argv in (
+            (compile_results.main, ["--datapath", "synthetic://2", "--out", missing]),
+            (bundle_adjust.main, ["--datapath", f"real://{missing}", "--airpose-pkl", missing,
+                                  "--out", missing]),
+            (figures.main, ["--results", f"a={missing}", "--out", missing])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+    assert not (tmp_path / "missing").exists()
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
