@@ -10,14 +10,19 @@ anything of ``airpose_tpu``.
 Layer map of the ported slices (the two-view perception chain with its bf16,
 int8 and int8-block trunks, the synthetic training steps of every model
 family, the trainer CLI with its readers, the real-data self-supervised
-fine-tune, and the eval metrics):
+fine-tune, the eval CLI and AirPose+, and two-drone serving):
+  serve/         the 145-float wire (protocol.py), the staged 3-step regressor
+                 (staged.py), the per-drone TCP server, the served-vs-offline
+                 benchtest, the lag-one report and the result viz
   perception.py  the chain of the root bench.py: trunk → IEF → 6D → SMPL-X → projection
   entry.py, bench.py, profile_*.py   entry point, throughput, device-time splits
   train/         the training steps: loop.py (make_twoview_step_fns,
                  make_singleview_step_fns, the real-data make_real_*_step_fns),
                  state.py (TrainState, optax-equal AMSGrad), losses.py,
                  trainer.py (the CLI); flax → torch weight carry of every family
-  eval/          MPJPE, PA-MPJPE, MPE (metrics.py)
+  eval/          MPJPE, PA-MPJPE, MPE (metrics.py), the eval CLI
+                 (compile_results.py), the figures
+  optim/         AirPose+, the per-sequence bundle adjustment
   data/          synthetic two-view dataset, the input pipeline, the
                  readers (AerialPeople, H36M, TotalCapture, mixed, DJI, AirCap),
                  joint tables

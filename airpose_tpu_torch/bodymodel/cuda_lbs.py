@@ -134,7 +134,8 @@ def _launch(lbs_weights: torch.Tensor, rel_tf: torch.Tensor,
             with torch.cuda.device(dev):
                 err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
         _build.check(err, "lbs_skinning")
-        launches += 1
+        with _build.count_lock:
+            launches += 1
     return out
 
 

@@ -1,5 +1,5 @@
-"""Constants of the perception chain and the training steps (copy of
-airpose_tpu/constants.py:9-45)."""
+"""Constants of the perception chain, the training steps and the serving
+wire (copy of airpose_tpu/constants.py:9-50)."""
 
 # Synthetic (AerialPeople) camera model.
 FOCAL_LENGTH = (1475.0, 1475.0)
@@ -27,3 +27,8 @@ LIMB_JOINTS_3D_L1 = (4, 5, 18, 19)    # knees, elbows     (×w)
 LIMB_JOINTS_3D_L2 = (7, 8, 20, 21)    # ankles, wrists    (×w²)
 LIMB_ROTMAT_L1 = (3, 4, 17, 18)       # same, shifted by the missing root
 LIMB_ROTMAT_L2 = (6, 7, 19, 20)
+
+# Wire format of the 3-step drone sync protocol: 145 float32 =
+# 10 betas + 3 trans (pre-scaled by TRANS_SCALE) + 22*6 pose —
+# ref copenet_real/scripts/copenet_rosViz.py:83-85.
+WIRE_NUM_FLOATS = 145

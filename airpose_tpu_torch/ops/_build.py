@@ -9,7 +9,12 @@ turns a non-zero code into an exception.
 
 Libraries go to ``build/kernels/`` at the repository root, named by a hash
 of the source and the flags, and are built at first use, never when a
-module is imported.
+module is imported. Threads of one process build and load under one lock,
+and each names its temporary file by process and thread, so two servers'
+executor threads that launch their first kernels at once run one build.
+
+``count_lock`` guards the kernel wrappers' launch counters: a read, add and
+write from two threads could otherwise lose a launch.
 """
 
 import ctypes
@@ -17,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -30,6 +36,8 @@ NVCC_FLAGS = (
 _libs = {}       # source stem -> loaded ctypes.CDLL
 _functions = {}  # (source stem, C name) -> typed ctypes function
 build_log = {}   # source stem -> nvcc's stderr (ptxas registers / shared memory)
+_lock = threading.RLock()  # build_all and function's first use
+count_lock = threading.Lock()  # the wrappers' launch counters
 
 
 def _nvcc() -> str:
@@ -44,6 +52,11 @@ def _nvcc() -> str:
 
 def build_all() -> float:
     """Compile and load every ``csrc/*.cu`` not loaded yet; returns seconds."""
+    with _lock:
+        return _build_all()
+
+
+def _build_all() -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {}
@@ -58,7 +71,7 @@ def build_all() -> float:
     for name, (src, so) in targets.items():
         if so.exists():
             continue
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         procs[name] = (subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp)
@@ -86,13 +99,17 @@ def function(lib: str, name: str, n_ptr: int, n_int: int, n_float: int = 0,
     key = (lib, name)
     fn = _functions.get(key)
     if fn is None:
-        if lib not in _libs:
-            build_all()
-        fn = _libs[lib][name]
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float] * n_float + ([ctypes.c_void_p] if stream else []))
-        fn.restype = ctypes.c_int
-        _functions[key] = fn
+        with _lock:
+            fn = _functions.get(key)
+            if fn is None:
+                if lib not in _libs:
+                    build_all()
+                fn = _libs[lib][name]
+                fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                               + [ctypes.c_float] * n_float
+                               + ([ctypes.c_void_p] if stream else []))
+                fn.restype = ctypes.c_int
+                _functions[key] = fn
     return fn
 
 

@@ -156,7 +156,8 @@ def fused_stage1_cuda(x: torch.Tensor, stage_ops: StageOps) -> torch.Tensor:
                 wp, bp = (blk["wp"].data_ptr(), blk["bp"].data_ptr()) if i == 0 else (None, None)
                 _build.check(fn(acts.data_ptr(), *ptr, wp, bp, out.data_ptr(),
                                 B, h, w, cin, stream), "fused_stage1")
-                launches += 1
+                with _build.count_lock:
+                    launches += 1
             acts = out
     return acts
 

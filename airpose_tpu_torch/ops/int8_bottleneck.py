@@ -28,6 +28,7 @@ from typing import Dict, List
 import torch
 from torch.profiler import record_function
 
+from . import _build
 from .int8_conv import int8_conv_cuda, int8_conv_reference
 
 launches = 0  # int8_block calls that launched their kernels, since the last reset
@@ -103,7 +104,8 @@ def int8_block(x: torch.Tensor, blk: Dict) -> torch.Tensor:
         return int8_block_reference(x, blk)
     out = run_block(int8_conv_cuda, x, blk)
     if out.numel():
-        launches += 1
+        with _build.count_lock:
+            launches += 1
     return out
 
 

@@ -215,5 +215,6 @@ def int8_conv_cuda(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor,
             with torch.cuda.device(dev):
                 err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
         _build.check(err, "int8_conv")
-        launches += 1
+        with _build.count_lock:
+            launches += 1
     return (out, out_q) if dual else out

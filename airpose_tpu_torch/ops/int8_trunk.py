@@ -33,6 +33,7 @@ import torch
 from torch.nn import functional as F
 from torch.profiler import record_function
 
+from . import _build
 from .fused_bottleneck import fold_bn_into_conv
 from .int8_conv import int8_conv, int8_conv_reference, quantize
 
@@ -58,7 +59,8 @@ def _quantize_act(x: torch.Tensor, s=None, clip_collect: Optional[Dict] = None,
     max|x|/127; with a static ``s``, ``clip_collect[name]`` records the
     fraction of values beyond 127.5·s, which the clip changes."""
     global quantize_calls
-    quantize_calls += 1
+    with _build.count_lock:
+        quantize_calls += 1
     x = x.float()
     if s is None:
         s = (x.abs().amax() / 127.0).clamp_min(1e-12)

@@ -122,7 +122,27 @@ Phases, each of which exits non-zero on failure:
      AirPose+ on its pkl through the bundle_adjust CLI's code, chunked
      across a chunk boundary and --sharded, and the figures' metric table
      (the plots, without matplotlib on the card machine, are left out),
-     every output's shapes checked.
+     every output's shapes checked;
+ 13. two-drone serving (airpose_tpu_torch.serve) in phase 10's temporary
+     directory, on phase 11's 30 test frames at 224² through real_batches,
+     serving phase 10's last.ckpt (seed 0 without it): (a) StagedRegressor's
+     3 rounds, one crop a call, with same-frame peer messages through the
+     wire against the fused forward (f32 copenet_twoview, seed-0
+     copenet_twoview_sep by sep_view), and with the int8 trunk against
+     Int8Inference's trunk on the same scales at the served 1 crop a call and
+     the fused IEF (features equal, 52 int8 conv launches a step-1 call and
+     the calibration's and clip report's); (b) the 52 int8
+     convs of one step-1 call at 1 crop exact against the plain version,
+     skinning at B = 1, each timed, and each round's wall time and device
+     work; (c) run_benchtest, two in-process servers over localhost TCP, f32
+     and --int8, with the served rate and the launches; (d) --rate-procs, two
+     `python -m airpose_tpu_torch.serve.server` processes on the card; (e) the
+     unchanged native C++ client (cmake, else g++) in fake mode at --fps 4
+     against two port servers, then the ROI replay of the capture's full
+     frames; (f) lag_one_report on a static scene and on the capture; (g) the
+     viz CLI on the clients' dumped step-3 results with the 10,475-vertex
+     body, 1 skinning launch a message, the vertices against the plain
+     skinning's.
 Prints the kernels as one JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA device is available.
@@ -251,6 +271,21 @@ BA_CLI_ITERS = (20, 40)     # the bundle_adjust CLI runs of phase 12c (BA_FRAMES
 # f32 sums in other orders, which Adam's normalised steps amplify
 # (tests/test_torch_bundle_adjust.py holds the port to JAX at rtol 2e-4).
 BA_SMALL, BA_CPU_RTOL = 24, 1e-3
+# Phase 13. Serving: the staged 3 rounds against the fused forward, f32 at
+# tests/test_serve.py:82's atol, int8 (its pose against Int8Inference's trunk
+# on the same scales, at the served 1 crop a call, and the fused IEF) at
+# :151's. Against Int8Inference.apply on the 60-crop folded batch the pose
+# differs by 5.3e-3 (measured on the H100: cuDNN's bf16 stem rounds differently at
+# that batch size, and the int8 quantization carries it on; logged, not
+# checked). The served-vs-offline diffs at :524's bound, the
+# native ROI replay at tests/test_native_client.py:236's; --int8 served pose
+# against the f32 offline forward as loosely as test_staged_int8_close_to_bf16
+# (mean |Δ| < 0.2 × the pose's rms); lag-one on a static scene :659-660's.
+STAGED_ATOL_F32, STAGED_ATOL_INT8 = 1e-4, 2e-3
+SERVED_DIFF, SERVED_ROI_DIFF, SERVED_INT8_RMS = 1e-3, 2e-2, 0.2
+LAGONE_STATIC = 1e-6
+NATIVE_FAKE_FRAMES, VIZ_FRAMES = 4, 3
+REFERENCE_FPS = 4.0         # the reference README's synchronized pipeline
 
 
 def log(msg):
@@ -2339,6 +2374,432 @@ def phase_eval(dev, tmp, card):
             "part_seconds": seconds}, at_b2000
 
 
+def staged_rounds(regs, u8, bb):
+    """The 3 rounds a frame with same-frame peer messages, one crop a call:
+    (pose (n, 2, 135), betas (n, 2, 10), step-1 features (n, 2, 2048))."""
+    from airpose_tpu_torch.serve.staged import state_to_wire, wire_to_peer
+
+    init = np.asarray([[0.0, 0.0, 10.0]], np.float32)
+    pose, betas, feats = [], [], []
+    for f in range(len(u8)):
+        states = [regs[v].step1(u8[f, v][None], bb[f, v][None], init) for v in (0, 1)]
+        feats.append(torch.stack([s.xf[0] for s in states]))
+        for _ in range(2):
+            wires = [state_to_wire(s) for s in states]
+            states = [regs[v].step23(states[v], bb[f, v][None],
+                                     *(a[None] for a in wire_to_peer(wires[1 - v])))
+                      for v in (0, 1)]
+        pose.append(np.stack([s.pose[0] for s in states]))
+        betas.append(np.stack([s.shape[0] for s in states]))
+    return np.stack(pose), np.stack(betas), torch.stack(feats)
+
+
+def serving_staged(dev, model, u8, bb):
+    """Phase 13a: StagedRegressor's 3 rounds against the fused forward of the
+    same crops: f32 AirPoseTwoView, the per-drone _sep (seed 0), and the
+    int8 trunk against Int8Inference on the same scales."""
+    from airpose_tpu_torch.models import MODEL_REGISTRY
+    from airpose_tpu_torch.ops import Int8Inference
+    from airpose_tpu_torch.serve import StagedRegressor
+
+    n = len(u8)
+    bb_d = torch.from_numpy(bb).to(dev)
+    pos = torch.tensor([0.0, 0.0, 10.0 * 0.05], device=dev).expand(n, 2, 3)
+    out = {}
+    for name, m in (("copenet_twoview", model),
+                    ("copenet_twoview_sep", MODEL_REGISTRY["copenet_twoview_sep"]().to(dev))):
+        sep = name == "copenet_twoview_sep"
+        regs = [StagedRegressor(m, sep_view=v if sep else None, device=dev) for v in (0, 1)]
+        x = regs[0]._normalize(torch.from_numpy(u8).to(dev))
+        pose, betas, _ = staged_rounds(regs, u8, bb)
+        with torch.inference_mode():
+            fused = m(x, bb_d, pos)
+        diff = max(np.abs(pose - fused.pose.cpu().numpy()).max(),
+                   np.abs(betas - fused.betas.cpu().numpy()).max())
+        log(f"staged {name} (3 rounds, 1 crop a call, {n} frames) vs fused: max |diff| "
+            f"{diff:.3e} (atol {STAGED_ATOL_F32})")
+        check(diff <= STAGED_ATOL_F32, f"staged {name} disagrees with the fused forward: {diff}")
+        out[name] = {"max_abs_diff": float(diff)}
+        del m, regs
+
+    # int8: one regressor for both views (one calibration table, on frame 0
+    # view 0's crop), against Int8Inference holding the same table
+    reg = StagedRegressor(model, int8=True, device=dev)
+    x = reg._normalize(torch.from_numpy(u8).to(dev))
+    reset_kernel_counts()
+    pose, betas, feats = staged_rounds([reg, reg], u8, bb)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    want = (2 * n + 2) * 52  # 52 a step-1 call, and calibration's and the clip report's
+    log(f"staged int8 ({n} frames × 2 views): launches {launches}, expected int8_conv {want}")
+    check(launches == {"lbs_skinning": 0, "fused_stage1": 0, "int8_conv": want},
+          f"staged int8 launches {launches}, expected {want} int8 conv launches only")
+    # the fused forward: Int8Inference's trunk at the served shape (1 crop a
+    # call; cuDNN's bf16 stem rounds differently at other batch sizes, and
+    # the int8 quantization carries that on), then the fused 3-step IEF
+    shim = Int8Inference(model, x[0, :1])
+    shim.qparams, shim.act_scales = [reg._qp], [reg._act_scales]
+    with torch.inference_mode():
+        xf = torch.stack([torch.cat([shim._infer(0, x[f, v][None]) for v in (0, 1)])
+                          for f in range(n)])
+        fused = model.from_features(xf, bb_d, pos)
+    feat_diff = (xf - feats).abs().max().item()
+    diff = max(np.abs(pose - fused.pose.cpu().numpy()).max(),
+               np.abs(betas - fused.betas.cpu().numpy()).max())
+    folded = shim.apply(x, bb_d, pos)
+    folded_feat = (shim._features(x) - feats).abs().max().item()
+    folded_diff = max(np.abs(pose - folded.pose.cpu().numpy()).max(),
+                      np.abs(betas - folded.betas.cpu().numpy()).max())
+    log(f"staged int8 vs Int8Inference on the same scales at 1 crop a trunk call: features "
+        f"max |diff| {feat_diff} (exact), pose and betas {diff:.3e} (atol {STAGED_ATOL_INT8}); "
+        f"against Int8Inference.apply on the {2 * n}-crop folded batch (not checked): features "
+        f"{folded_feat:.3e}, pose and betas {folded_diff:.3e}")
+    check(feat_diff == 0.0, f"staged int8 features differ from Int8Inference's: {feat_diff}")
+    check(diff <= STAGED_ATOL_INT8, f"staged int8 disagrees with Int8Inference: {diff}")
+    out["int8"] = {"feature_max_abs_diff": feat_diff, "max_abs_diff": float(diff),
+                   "folded_feature_max_abs_diff": folded_feat,
+                   "folded_max_abs_diff": float(folded_diff), "launches": launches["int8_conv"]}
+    return out, reg
+
+
+def serving_kernels(dev, reg, crop):
+    """Phase 13b: the kernels at this path's shapes against their plain
+    versions: the 52 int8 convs of one step-1 call at 1 crop of 224², and
+    skinning at B = 1 body; then each round's wall time and device work."""
+    from airpose_tpu_torch.bodymodel import synthetic_smplx_params
+    from airpose_tpu_torch.ops import int8_conv as ic
+    from airpose_tpu_torch.ops import int8_trunk as it
+
+    calls = []
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return ic.int8_conv(*a, **kw)
+
+    with torch.inference_mode():
+        it.resnet50_int8_infer(reg._qp, crop, reg._act_scales, conv=record)
+    check(len(calls) == 52, f"one step-1 call made {len(calls)} conv calls, expected 52")
+    err = 0.0
+    for a, kw in calls:
+        err = max(err, max_diff(ic.int8_conv(*a, **kw), ic.int8_conv_reference(*a, **kw)))
+    torch.cuda.synchronize()
+    check(err == 0.0, f"int8 conv kernel differs from its plain version at 1 crop: {err}")
+
+    def replay(fn):
+        for a, kw in calls:
+            fn(*a, **kw)
+
+    ms = time_ms(lambda: replay(ic.int8_conv), iters=20)
+    plain_ms = time_ms(lambda: replay(ic.int8_conv_reference), iters=3, warmup=1)
+    library_ms = time_ms(lambda: replay(int_mm_conv), iters=20)
+    n_ops = n_bytes = 0
+    for (x, w, m, b, ksize, stride), kw in calls:
+        o, nb = ic.conv_cost(x, w, ksize, stride, kw.get("res"), kw["out_dtype"],
+                             kw.get("qscale"))
+        n_ops, n_bytes = n_ops + o, n_bytes + nb
+    bound_ms, bound_by = bound(n_bytes, n_ops, INT8_OP_PER_S)
+    rows = sorted({ic.out_size(a[0].shape[1], a[4], a[5]) * ic.out_size(a[0].shape[2], a[4], a[5])
+                   for a, _ in calls})
+    log(f"int8_conv at 1 crop of 224² (GEMM rows M from {rows[0]} to {rows[-1]}): the 52 "
+        f"convs exact against the plain version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {library_ms:.4f} ms (torch._int_mm), bound {bound_ms:.4f} ms ({bound_by}), "
+        f"kernel at {bound_ms / ms:.1%} of its bound")
+    at_1_crop = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library_ms}
+
+    rng = np.random.default_rng(13)
+    w = synthetic_smplx_params().lbs_weights.to(dev)
+    rel = rng.normal(size=(1, 55, 4, 4)).astype(np.float32) * 0.3
+    rel[:, :, 3] = [0, 0, 0, 1]
+    at_b1 = skinning_at(w, torch.from_numpy(rel).to(dev),
+                        torch.from_numpy(rng.normal(size=(1, 10475, 3)).astype(np.float32)).to(dev))
+    return at_1_crop, at_b1
+
+
+def round_split(dev, model, int8_reg, crop_u8):
+    """Each round's wall time on the host clock (it ends in its device→host
+    copy) and its device work under the profiler, at 1 crop."""
+    from airpose_tpu_torch.serve import StagedRegressor
+
+    reg = StagedRegressor(model, device=dev)
+    bb, init = np.zeros((1, 3), np.float32), np.asarray([[0.0, 0.0, 10.0]], np.float32)
+    state = reg.step1(crop_u8, bb, init)
+    art, shape = reg._mean_art, reg._mean_shape
+    split = {}
+    for name, fn in (("f32 step1", lambda: reg.step1(crop_u8, bb, init)),
+                     ("step2/3", lambda: reg.step23(state, bb, art, shape)),
+                     ("int8 step1", lambda: int8_reg.step1(crop_u8, bb, init))):
+        for _ in range(3):
+            fn()
+        n = 30
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        wall = (time.perf_counter() - t) / n * 1e3
+        events, _ = device_work(fn, 10)
+        busy = sum(e.time_range.elapsed_us() for e in events) / 1e3 / 10
+        split[name] = {"wall_ms": wall, "device_ms": busy, "idle_share": 1 - busy / wall,
+                       "device_ops": len(events) / 10}
+        log(f"round {name} at 1 crop: {wall:.3f} ms wall, device busy {busy:.3f} ms in "
+            f"{len(events) / 10:.0f} kernels and copies, idle share {1 - busy / wall:.3f}")
+    return split
+
+
+def two_servers(model, dev, ports):
+    """Two in-process servers of ``model`` on a loop thread: (loop, thread)."""
+    import asyncio
+
+    from airpose_tpu_torch.serve import StagedRegressor
+    from airpose_tpu_torch.serve.server import run_server
+
+    loop = asyncio.new_event_loop()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        regs = [StagedRegressor(model, device=dev) for _ in (0, 1)]
+        loop.create_task(run_server(regs[0], 1, ports[0], peer_port=ports[1]))
+        loop.create_task(run_server(regs[1], 2, ports[1], peer_port=ports[0]))
+        loop.run_forever()
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    time.sleep(1.0)
+    return loop, thread
+
+
+def stop_servers(loop, thread):
+    import asyncio
+
+    async def shutdown():
+        tasks = [t for t in asyncio.all_tasks(loop) if t is not asyncio.current_task()]
+        for task in tasks:
+            task.cancel()
+        if tasks:
+            await asyncio.wait(tasks, timeout=5)
+        loop.stop()
+
+    asyncio.run_coroutine_threadsafe(shutdown(), loop)
+    thread.join(timeout=10)
+    check(not thread.is_alive(), "the servers' loop did not stop")
+    loop.close()
+
+
+def native_client_binary(tmp):
+    """The unchanged native C++ client: built by the port's cmake recipe
+    where cmake exists, else by g++ into ``tmp``. (path, route)."""
+    from airpose_tpu_torch.serve import benchtest
+
+    if shutil.which("cmake") and benchtest.ensure_client_built():
+        return benchtest._client_binary(), "cmake (benchtest.ensure_client_built)"
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(tmp, "airpose_client")
+    r = subprocess.run(["g++", "-std=c++17", "-O2", "-I", os.path.join(root, "native"),
+                        os.path.join(root, "native", "client", "airpose_client.cpp"),
+                        "-o", path], capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"the native client builds neither with cmake nor with g++: "
+          f"{r.stderr[-2000:]}")
+    return path, "g++ -std=c++17 -O2 -I native"
+
+
+def serving_native(dev, model, tmp, ds, batches, card):
+    """Phase 13e: the native C++ client, unchanged, against the port's
+    servers: two clients in fake mode at --fps 4, every frame answered (their
+    dumped step-3 results are returned), then the ROI replay of the
+    capture's full frames."""
+    from airpose_tpu_torch.serve import benchtest
+
+    client, route = native_client_binary(tmp)
+    log(f"native client: built by {route}")
+    ports = benchtest._free_ports(2)
+    loop, thread = two_servers(model, dev, ports)
+    dumps = [os.path.join(tmp, f"served_{v}.bin") for v in (0, 1)]
+    try:
+        procs = [subprocess.Popen(
+            [client, "--host", "127.0.0.1", "--port", str(ports[v]), "--robot-id", str(v + 1),
+             "--frames", str(NATIVE_FAKE_FRAMES), "--fps", "4", "--dump-results", dumps[v]],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for v in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=120)
+                check(p.returncode == 0, f"native client exited {p.returncode}: {err[-2000:]}")
+                outs.append(out)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    finally:
+        stop_servers(loop, thread)
+    for v, out in enumerate(outs):
+        lines = [line for line in out.splitlines() if line.startswith("RESULT")]
+        check(len(lines) == NATIVE_FAKE_FRAMES and all(
+            f"frame={i} " in line for i, line in enumerate(lines)),
+            f"native client {v + 1} got {len(lines)} RESULT lines for {NATIVE_FAKE_FRAMES} "
+            f"frames:\n{out[-2000:]}")
+    log(f"native clients in fake mode at --fps 4: {NATIVE_FAKE_FRAMES} RESULT lines each; "
+        f"client 1's last: {outs[0].splitlines()[-1][:160]}")
+    rec = np.fromfile(dumps[0], dtype=np.dtype([("fid", "<u4"), ("data", "<f4", 145)]))
+    check(len(rec) == NATIVE_FAKE_FRAMES and np.isfinite(rec["data"]).all(),
+          f"native client 1 dumped {len(rec)} results")
+
+    with mock.patch.object(benchtest, "_client_binary", return_value=client):
+        t = time.perf_counter()
+        diffs = benchtest.run_benchtest(model, batches, native_roi=ds, device=dev)
+    seconds = time.perf_counter() - t
+    log(f"native ROI replay of {len(ds)} full 1920×1080 frames a camera: diffs "
+        f"{json.dumps(diffs)} (bound {SERVED_ROI_DIFF}), {seconds:.1f} s [{card}]")
+    check(all(v < SERVED_ROI_DIFF for v in diffs.values()),
+          f"native ROI replay diffs beyond {SERVED_ROI_DIFF}: {diffs}")
+    return {"route": route, "fake_mode_frames": NATIVE_FAKE_FRAMES, "roi_diffs": diffs,
+            "roi_seconds": seconds}, rec["data"]
+
+
+def phase_serving(dev, tmp, card):
+    """Phase 13, two-drone serving (airpose_tpu_torch.serve) on phase 11's
+    capture, its 30 test frames at 224², with phase 10's last.ckpt."""
+    from airpose_tpu_torch.data import CopenetRealDataset
+    from airpose_tpu_torch.eval.compile_results import real_batches
+    from airpose_tpu_torch.serve import benchtest, lagone, viz
+    from airpose_tpu_torch.serve.staged import normalize_host
+    from airpose_tpu_torch.train.checkpoint import load_model_variables
+
+    seconds, t = {}, time.perf_counter()
+    ckpt = os.path.join(tmp, "logs", "smoke", "version_0", "checkpoints", "last.ckpt")
+    have_ckpt = os.path.exists(ckpt)
+    model, _ = load_model_variables("copenet_twoview", torch_ckpt=ckpt if have_ckpt else None,
+                                    random_init=not have_ckpt, device=dev)
+    log(f"phase 13 serves {'phase 10' + chr(39) + 's last.ckpt' if have_ckpt else 'seed 0'}")
+    ds = CopenetRealDataset(os.path.join(tmp, "capture"), frame_range=range(
+        REAL_TRAIN_FRAMES, REAL_TRAIN_FRAMES + REAL_TEST_FRAMES))
+    batches = list(real_batches(ds, REAL_TEST_FRAMES, device=dev))
+    images = batches[0]["images"].cpu().numpy()
+    bb = batches[0]["bb"].cpu().numpy()
+    u8 = np.stack([[benchtest._denormalize_u8(images[f, v]) for v in (0, 1)]
+                   for f in range(len(images))])
+    out = {"frames": len(images), "weights": "last.ckpt" if have_ckpt else "seed 0"}
+
+    out["staged"], int8_reg = serving_staged(dev, model, u8, bb)
+    seconds["13a"], t = time.perf_counter() - t, time.perf_counter()
+    crop = int8_reg._normalize(torch.from_numpy(u8[0, 0][None]).to(dev))
+    at_1_crop, at_b1 = serving_kernels(dev, int8_reg, crop)
+    out["round_split"] = round_split(dev, model, int8_reg, u8[0, 0][None])
+    seconds["13b"], t = time.perf_counter() - t, time.perf_counter()
+
+    with torch.inference_mode():
+        fused = model(torch.from_numpy(np.stack([[normalize_host(u8[f, v]) for v in (0, 1)]
+                                                 for f in range(len(u8))])).float().to(dev),
+                      torch.from_numpy(bb).to(dev),
+                      torch.tensor([0.0, 0.0, 0.5], device=dev).expand(len(u8), 2, 3))
+    pose_rms = fused.pose[..., 3:].std(dim=(0, 2)).cpu().numpy()
+    served = {}
+    for name, int8 in (("f32", False), ("int8", True)):
+        reset_kernel_counts()
+        served[name] = benchtest.run_benchtest(model, batches, int8=int8, measure_rate=True,
+                                               device=dev)
+        torch.cuda.synchronize()
+        served[name]["launches"] = kernel_counts()
+        fps = served[name]["served_fps"]
+        log(f"benchtest {name}, two in-process servers over localhost TCP, {len(u8)} frames: "
+            f"{json.dumps(served[name])}; served_fps {fps:.2f} a drone pair after the warm-up "
+            f"(the reference: {REFERENCE_FPS} FPS) [{card}]")
+    check(all(served["f32"][k] < SERVED_DIFF for k in served["f32"] if k.startswith(
+        ("beta", "trans", "pose"))), f"f32 served diffs beyond {SERVED_DIFF}: {served['f32']}")
+    check(all(served["int8"][f"pose_{m}"] < SERVED_INT8_RMS * pose_rms[v]
+              for v, m in enumerate(("m1", "m2"))),
+          f"--int8 served pose beyond {SERVED_INT8_RMS} × rms {pose_rms}: {served['int8']}")
+    want = 2 * (len(u8) + 2) * 52  # two servers: 52 a frame, calibration and clip report once
+    check(served["f32"]["launches"] == {"lbs_skinning": 0, "fused_stage1": 0, "int8_conv": 0},
+          f"f32 serving launched kernels: {served['f32']['launches']}")
+    check(served["int8"]["launches"] == {"lbs_skinning": 0, "fused_stage1": 0, "int8_conv": want},
+          f"--int8 serving launches {served['int8']['launches']}, expected {want} int8 conv")
+    log(f"--int8 served pose rms of the f32 forward {pose_rms.tolist()}; int8 conv launches "
+        f"{want} = 2 servers × ({len(u8)} frames + calibration + clip report) × 52")
+    out["served"] = served
+    seconds["13c"], t = time.perf_counter() - t, time.perf_counter()
+
+    args = ["--model", "copenet_twoview"] + (["--ckpt", ckpt] if have_ckpt else ["--random-init"])
+    procs = benchtest.run_benchtest(model, batches, measure_rate=True, server_cli_args=args,
+                                    device=dev)
+    log(f"benchtest --rate-procs, two `python -m airpose_tpu_torch.serve.server` processes on "
+        f"the card: {json.dumps(procs)}; served_fps {procs['served_fps']:.2f} [{card}]")
+    check(all(procs[k] < SERVED_DIFF for k in procs if k != "served_fps"),
+          f"--rate-procs diffs beyond {SERVED_DIFF}: {procs}")
+    out["rate_procs"] = procs
+    seconds["13d"], t = time.perf_counter() - t, time.perf_counter()
+
+    out["native"], wire = serving_native(dev, model, tmp, ds, batches, card)
+    seconds["13e"], t = time.perf_counter() - t, time.perf_counter()
+
+    norm = [images[f] for f in range(len(images))]
+    bbs = [bb[f] for f in range(len(bb))]
+    init = np.asarray([0.0, 0.0, 10.0], np.float32)
+    static = lagone.lag_one_report(model, norm[:1] * 4, bbs[:1] * 4, init, device=dev)
+    moving = lagone.lag_one_report(model, norm, bbs, init, device=dev)
+    log(f"lag-one: static scene {json.dumps(static)} (bound {LAGONE_STATIC}); the capture's "
+        f"{len(norm)} frames {json.dumps(moving)}")
+    check(static["pose_absdiff"] < LAGONE_STATIC and static["beta_absdiff"] < LAGONE_STATIC,
+          f"lag-one differs from the synchronized protocol on a static scene: {static}")
+    out["lagone"] = {"static": static, "capture": moving}
+    seconds["13f"], t = time.perf_counter() - t, time.perf_counter()
+
+    from airpose_tpu_torch.bodymodel import smplx_forward, synthetic_smplx_params
+    from airpose_tpu_torch.geometry.rotations import rot6d_to_rotmat
+    from airpose_tpu_torch.serve.protocol import unpack_params
+    from airpose_tpu_torch.utils.render import overlay_mesh
+    import cv2
+
+    npy, viz_dir = os.path.join(tmp, "served.npy"), os.path.join(tmp, "viz")
+    np.save(npy, wire)
+    reset_kernel_counts()
+    viz.main(["--wire", npy, "--out", viz_dir, "--max-frames", str(VIZ_FRAMES)])
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    check(launches == {"lbs_skinning": VIZ_FRAMES, "fused_stage1": 0, "int8_conv": 0},
+          f"viz launches {launches}, expected {VIZ_FRAMES} skinning launches")
+    pngs = sorted(os.listdir(viz_dir))
+    check(len(pngs) == VIZ_FRAMES, f"viz wrote {pngs}")
+    # each PNG against the same message rendered here from the plain
+    # skinning's vertices: within one uint8 step, and showing a body exactly
+    # where that render does (off the canvas, the message's translation
+    # leaves it uniform)
+    params = synthetic_smplx_params().to(dev)
+    err, step, shown = 0.0, 0, 0
+    for i, name in enumerate(pngs):
+        betas, trans, pose6d = unpack_params(wire[i])
+        with torch.inference_mode():
+            rotmat = rot6d_to_rotmat(torch.from_numpy(pose6d.reshape(22, 6)).to(dev))
+            verts = [smplx_forward(params, torch.from_numpy(np.array(betas))[None].to(dev),
+                                   body_pose=rotmat[None, 1:],
+                                   global_orient=torch.eye(3, device=dev).expand(1, 1, 3, 3),
+                                   use_kernels=k).vertices for k in (True, False)]
+        err = max(err, (verts[0] - verts[1]).abs().max().item())
+        plain = verts[1][0].cpu().numpy() @ rotmat[0].cpu().numpy().T + trans
+        want = overlay_mesh(np.full((540, 960, 3), 0.15), plain, params.faces,
+                            (1475.0 * 960 / 1920, 1475.0 * 540 / 1080), center=(480, 270))
+        want = (np.clip(want, 0, 1) * 255).astype(np.uint8)
+        img = cv2.imread(os.path.join(viz_dir, name))
+        check(img is not None and img.shape == (540, 960, 3), f"viz PNG {name} is unreadable")
+        step = max(step, int(np.abs(img[..., ::-1].astype(np.int16) - want).max()))
+        body = bool(want.std() > 0)
+        shown += body
+        check((img.std() > 0) == body, f"viz PNG {name}: body shown {img.std() > 0}, the plain "
+              f"render's {body} (translation {trans.tolist()})")
+    log(f"viz CLI: {VIZ_FRAMES} PNGs of the served step-3 results (10,475 vertices), "
+        f"{shown} with the body on the canvas; {launches['lbs_skinning']} skinning launches; "
+        f"kernel-skinned vertices max |diff| {err:.3e} from the plain skinning's (atol "
+        f"{SKIN_ATOL}); the PNGs within {step} uint8 step(s) of the plain render")
+    check(err <= SKIN_ATOL, f"viz vertices: kernel against plain skinning {err}")
+    check(step <= 1, f"viz PNGs differ from the plain render by {step} uint8 steps")
+    out["viz"] = {"pngs": len(pngs), "with_body": shown,
+                  "skinning_launches": launches["lbs_skinning"],
+                  "vertex_max_abs_diff": err, "max_uint8_step": step}
+    seconds["13g"] = time.perf_counter() - t
+    log(f"phase 13 by part: {', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())} [{card}]")
+    out["part_seconds"] = seconds
+    return out, at_1_crop, at_b1
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2408,9 +2869,15 @@ def main():
         torch.cuda.empty_cache()
         t12 = time.perf_counter()
         phase12, kernels[0]["at_b2000"] = phase_eval(dev, tmp, card)
-    phase12["seconds"] = time.perf_counter() - t12
-    log(f"phase 12: {phase12['seconds']:.1f} s [{card}]")
-    log(json.dumps({"phase12": phase12}))
+        phase12["seconds"] = time.perf_counter() - t12
+        log(f"phase 12: {phase12['seconds']:.1f} s [{card}]")
+        log(json.dumps({"phase12": phase12}))
+        torch.cuda.empty_cache()
+        t13 = time.perf_counter()
+        phase13, int8_at_1_crop, kernels[0]["at_b1"] = phase_serving(dev, tmp, card)
+        phase13["seconds"] = time.perf_counter() - t13
+    log(f"phase 13: {phase13['seconds']:.1f} s [{card}]")
+    log(json.dumps({"phase13": phase13}))
     # launches: kernel launches in the main path's run of the chain that uses
     # each kernel (int8_block: its 42 conv launches, beside its 13 block calls)
     launches["int8_conv"] = int8_launches["int8"]["int8_conv"]
@@ -2465,6 +2932,19 @@ def main():
     next(k for k in kernels if k["name"] == "int8_conv")["phase12_launches"] = {
         name: v["int8_conv_launches"] for name, v in passes.items()
         if isinstance(v, dict) and v.get("int8_conv_launches")}
+    # launches on phase 13's path, each counted in its run: skinning once a
+    # message the viz CLI renders; the int8 conv 52 times a step-1 call (one
+    # crop), and once more per server in calibration and the clip report
+    n13 = phase13["frames"]
+    kernels[0]["phase13_launches"] = {
+        f"viz CLI, {VIZ_FRAMES} served messages": phase13["viz"]["skinning_launches"]}
+    int8_row = next(k for k in kernels if k["name"] == "int8_conv")
+    int8_row["phase13_launches"] = {
+        f"--int8 benchtest, 2 servers × {n13} frames":
+            phase13["served"]["int8"]["launches"]["int8_conv"],
+        f"staged int8, 3 rounds × {n13} frames × 2 views":
+            phase13["staged"]["int8"]["launches"]}
+    int8_row["at_1_crop"] = int8_at_1_crop
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,temperature.gpu,"
          "power.draw", "--format=csv"],

@@ -4,8 +4,11 @@ instead of falling back to the CPU."""
 
 import ast
 import importlib
+import re
 import subprocess
 import sys
+import threading
+import types
 from pathlib import Path
 
 import pytest
@@ -18,6 +21,8 @@ from airpose_tpu_torch.data import batch_slice
 from airpose_tpu_torch.entry import entry
 from airpose_tpu_torch.eval import compile_results, figures
 from airpose_tpu_torch.ops import _build
+from airpose_tpu_torch.ops import int8_trunk
+from airpose_tpu_torch.serve import benchtest, lagone, server, viz
 from airpose_tpu_torch.perception import bench_inputs, build_perception
 from airpose_tpu_torch.models import family_init_args, mean_init_state
 from airpose_tpu_torch.train import (make_real_singleview_step_fns, make_real_twoview_step_fns,
@@ -55,6 +60,23 @@ def test_data_and_trainer_import_neither_jax_nor_cv2():
         "import airpose_tpu_torch.data.fake_real, airpose_tpu_torch.bodymodel.vposer\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',"
         " 'h5py', 'airpose_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_serve_imports_neither_jax_nor_cv2():
+    """The serving package imports OpenCV only where viz writes a PNG and
+    the native ROI replay reads a frame."""
+    code = (
+        "import sys\n"
+        "import airpose_tpu_torch.serve, airpose_tpu_torch.serve.server\n"
+        "import airpose_tpu_torch.serve.benchtest, airpose_tpu_torch.serve.lagone\n"
+        "import airpose_tpu_torch.serve.viz\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',"
+        " 'matplotlib', 'airpose_tpu')]\n"
         "assert not bad, bad\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -112,6 +134,107 @@ def test_eval_and_airpose_plus_clis_raise_without_cuda(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(argv)
     assert not (tmp_path / "missing").exists()
+
+
+def test_serving_clis_raise_without_cuda(tmp_path):
+    """The server, the benchtest, lagone and viz take the card unless given
+    --platform cpu: without CUDA each raises before it reads any input."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    missing = str(tmp_path / "missing")
+    for main, argv in (
+            (server.main, ["--port", "1", "--robot-id", "1", "--random-init"]),
+            (benchtest.main, ["--datapath", f"real://{missing}", "--random-init"]),
+            (lagone.main, ["--datapath", f"real://{missing}", "--random-init"]),
+            (viz.main, ["--wire", missing, "--out", missing])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+    assert not (tmp_path / "missing").exists()
+
+
+FAKE_NVCC = """#!/bin/sh
+# records its output path, takes a moment, writes a stand-in library
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; fi
+  shift
+done
+echo "$out" >> "{log}"
+sleep 0.3
+echo lib > "$out"
+"""
+
+
+def test_kernel_build_from_two_threads_runs_once(monkeypatch, tmp_path):
+    """Two threads (two in-process servers' executor threads) reach the
+    kernels' first use together: one nvcc per source, each writing a
+    temporary file named by process and thread, and both threads get the
+    same typed function."""
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(FAKE_NVCC.format(log=log))
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(nvcc.parent))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_functions", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+
+    class FakeLib:
+        def __init__(self, path):
+            self.path = path
+
+        def __getitem__(self, name):
+            return types.SimpleNamespace(name=name)
+
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    barrier = threading.Barrier(2)
+    got, errors = [None, None], []
+
+    def first_use(i):
+        try:
+            barrier.wait(timeout=10)
+            got[i] = _build.function("lbs_skinning", "airpose_lbs_skinning", 4, 3)
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=first_use, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert got[0] is got[1] and got[0].name == "airpose_lbs_skinning"
+    outs = log.read_text().split()
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert len(outs) == len(sources)  # one build of each source
+    for out in outs:
+        assert re.search(r"-[0-9a-f]{16}\.\d+\.\d+\.tmp$", out), out
+    assert sorted(p.name.split("-")[0] for p in (tmp_path / "kernels").iterdir()) == sources
+    assert sorted(_build._libs) == sources
+
+
+def test_launch_counters_lose_no_update():
+    """Counted calls from many threads at once, switching often, all count:
+    int8_trunk.quantize_calls, incremented under the kernels' counter lock."""
+    x = torch.ones(1, 2, 2, 1)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        int8_trunk.quantize_calls = 0
+
+        def work():
+            for _ in range(200):
+                int8_trunk._quantize_act(x)
+
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert int8_trunk.quantize_calls == 16 * 200
+    finally:
+        sys.setswitchinterval(interval)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
