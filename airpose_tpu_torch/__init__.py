@@ -10,7 +10,12 @@ anything of ``airpose_tpu``.
 Layer map of the ported slices (the two-view perception chain with its bf16,
 int8 and int8-block trunks, the synthetic training steps of every model
 family, the trainer CLI with its readers, the real-data self-supervised
-fine-tune, the eval CLI and AirPose+, and two-drone serving):
+fine-tune, the eval CLI and AirPose+, two-drone serving, and the reference
+workflow's tools):
+  tools/         the fixture generators, the dress rehearsal that chains every
+                 CLI, the training-step roofline, the QAT posture experiment,
+                 calibration, real-capture preparation, the HDF5 export
+  utils/         profiling (trace, sync, StepTimer) and the mesh renderer
   serve/         the 145-float wire (protocol.py), the staged 3-step regressor
                  (staged.py), the per-drone TCP server, the served-vs-offline
                  benchtest, the lag-one report and the result viz

@@ -30,7 +30,7 @@ Flags and defaults are the JAX CLI's, with three differences: ``--platform
 {cpu,cuda}`` (the card by default; raises without CUDA); ``--ckpt`` is a
 checkpoint file the port's trainer writes (train.checkpoint.CheckpointManager;
 the port reads no orbax directory); and ``--mesh N`` takes only N = 1, one
-card (data-parallel eval over several cards is ROADMAP item 11).
+card (data-parallel eval over several cards is the ROADMAP item "Multi-device").
 
 Usage:
   python -m airpose_tpu_torch.eval.compile_results --model copenet_twoview \
@@ -693,7 +693,8 @@ def main(argv=None):
 
     if args.mesh is not None and args.mesh > 1:
         p.error(f"--mesh {args.mesh}: data-parallel eval over several cards is not ported "
-                "yet (ROADMAP item 11); the port evaluates on one card, --mesh 1")
+                "yet (the ROADMAP item \"Multi-device\"); the port evaluates on one card, "
+                "--mesh 1")
     dev = resolve_device(args.platform)
 
     from ..bodymodel import load_smplx_npz, synthetic_smplx_params

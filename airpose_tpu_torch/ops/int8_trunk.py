@@ -137,6 +137,17 @@ def _fconv(x: torch.Tensor, conv: Dict, stride: int = 1) -> torch.Tensor:
     return (y.float() + conv["b"]).to(BF16)
 
 
+def int8_stem(stem: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The trunk's folded-BN bf16 stem: (N, H, W, 3) f32 → the
+    (N, H/4, W/4, 64) bf16 map the int8 layers read."""
+    h = _nhwc(F.conv2d(_nchw(x).to(BF16), stem["w"], stride=2, padding=3))
+    # relu(bf16(f32(h) + b)) is monotone in h, so it commutes with the
+    # max: pool first, then add and relu on a quarter of the values, in
+    # place (bf16 out, without an f32 map)
+    h = _nhwc(F.max_pool2d(_nchw(h), 3, stride=2, padding=1))
+    return h.add_(stem["b"]).relu_()
+
+
 def resnet50_int8_infer(qparams: Dict, x: torch.Tensor, act_scales: Optional[Dict] = None,
                         int8_stages=(1, 2, 3, 4), use_kernels: bool = True,
                         conv: Optional[Callable] = None,
@@ -167,13 +178,7 @@ def resnet50_int8_infer(qparams: Dict, x: torch.Tensor, act_scales: Optional[Dic
         return act_scales["layer{}_{}/conv1".format(*order[i + 1])]
 
     with record_function("stem"):
-        stem = qparams["stem"]
-        h = _nhwc(F.conv2d(_nchw(x).to(BF16), stem["w"], stride=2, padding=3))
-        # relu(bf16(f32(h) + b)) is monotone in h, so it commutes with the
-        # max: pool first, then add and relu on a quarter of the values, in
-        # place (bf16 out, without an f32 map)
-        h = _nhwc(F.max_pool2d(_nchw(h), 3, stride=2, padding=1))
-        h = h.add_(stem["b"]).relu_()
+        h = int8_stem(qparams["stem"], x)
 
     with record_function("int8_layers"):
         # the static path's per-conv multipliers xs·ws, in one launch

@@ -23,7 +23,7 @@ confidences every iteration), and the β regulariser penalises the optimised
 Each iteration is one forward, one backward and the Adam update on the
 card, with nothing read back: the loss trace stays on the device until the
 end of the run. Optimising a whole sequence across several cards
-(``bundle_adjust_sharded`` in the JAX package) is ROADMAP item 11; on one
+(``bundle_adjust_sharded`` in the JAX package) is the ROADMAP item "Multi-device"; on one
 card ``--sharded`` optimises the sequence as one span through
 ``bundle_adjust``, which is what the sharded function computes on a
 one-device mesh.
@@ -423,7 +423,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sharded", action="store_true",
                    help="optimise the whole sequence jointly as one span (no chunk "
                         "boundaries in the temporal term, one β for the capture); the port "
-                        "does it on one card (several cards: ROADMAP item 11)")
+                        "does it on one card (several cards: the ROADMAP item \"Multi-device\")")
     p.add_argument("--iters1", type=int, default=100)
     p.add_argument("--iters2", type=int, default=200)
     p.add_argument("--lr", type=float, default=0.01,

@@ -143,6 +143,28 @@ Phases, each of which exits non-zero on failure:
      viz CLI on the clients' dumped step-3 results with the 10,475-vertex
      body, 1 skinning launch a message, the vertices against the plain
      skinning's.
+ 14. the reference workflow's tools (airpose_tpu_torch.tools) in a temporary
+     directory of its own: (a) create_aerialpeople at its defaults (4 subjects
+     × 5 poses) on the 10,475-vertex body, one skinning launch a pose, its
+     SMPL-X fields against the same run with the plain skinning, and the
+     capture and TotalCapture db writers; (b) dress_rehearsal.run in process
+     at 224² and 10,475 vertices (the JAX defaults otherwise: 48 fine-tune
+     steps, stage 7's assert armed), each stage's seconds and its skinning
+     and int8 conv launches against the counts the code gives, then the
+     module's entry point as a subprocess at tests/test_dress_rehearsal.py's
+     sizes, its stage seconds read from its [k/10] lines as they arrive
+     (without matplotlib and h5py, the card machine's case, stage 8 leaves
+     the plot out and stage 10 is left out, each with a printed reason); (c)
+     train_roofline at B = 30 of 224², its eight stages through its entry
+     point, then each with its device busy ms, idle share (utils/profiling's
+     trace) and peak memory, and the full step and the trunk with --remat,
+     beside phase 8's step; (d) qat_posture at B = 30 of 224², two batches
+     and a held-out one, 2 + 2 steps, its five arms finite under the
+     deployed int8 trunk (the int8 conv kernel), launches as the code gives
+     them; (e) calibration and prepare_real_capture on generated chessboard
+     and ArUco frames (to_hdf5 only where h5py is); and the int8 trunk's
+     bf16 stem on one crop alone and as the first of 60, with cuDNN's
+     deterministic mode off and on.
 Prints the kernels as one JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA device is available.
@@ -2800,6 +2822,500 @@ def phase_serving(dev, tmp, card):
     return out, at_1_crop, at_b1
 
 
+# ---- phase 14: the reference workflow's tools ---------------------------------------------
+
+
+class _StagedLines(_Lines):
+    """_Lines that also keeps the kernel counts at each line."""
+
+    def __init__(self, echo):
+        super().__init__(echo)
+        self.counts = []
+
+    def write(self, text):
+        n = len(self.lines)
+        written = super().write(text)
+        self.counts += [kernel_counts() for _ in self.lines[n:]]
+        return written
+
+
+class KernelInputs:
+    """Within ``recording()``, a copy of the first inputs that the int8 conv
+    and skinning wrappers get at each shape on the path (through
+    int8_trunk's and lbs.py's calls, the only callers on phase 14's paths);
+    ``compare()`` then runs each wrapper's kernel on those copies against its
+    plain version, outside the counted run."""
+
+    def __init__(self):
+        self.convs, self.skins = {}, {}
+
+    @contextlib.contextmanager
+    def recording(self):
+        import inspect
+
+        from airpose_tpu_torch.bodymodel import lbs
+        from airpose_tpu_torch.ops import int8_trunk
+
+        conv, skin = int8_trunk.int8_conv, lbs.skinning
+        sig = inspect.signature(conv)
+
+        def keep(t):
+            return t.detach().clone() if isinstance(t, torch.Tensor) else t
+
+        def conv_rec(*args, **kwargs):
+            a = sig.bind(*args, **kwargs)
+            a.apply_defaults()
+            v = a.arguments
+            key = tuple((tuple(t.shape), t.dtype) if isinstance(t, torch.Tensor) else t
+                        for n, t in v.items() if n not in ("m", "r", "qscale")) + (
+                v["qscale"] is None,)
+            if key not in self.convs:
+                self.convs[key] = {n: keep(t) for n, t in v.items()}
+            return conv(*args, **kwargs)
+
+        def skin_rec(w, a, p):
+            if tuple(p.shape) not in self.skins:
+                self.skins[tuple(p.shape)] = (keep(w), keep(a), keep(p))
+            return skin(w, a, p)
+
+        with mock.patch.object(int8_trunk, "int8_conv", conv_rec), \
+                mock.patch.object(lbs, "skinning", skin_rec):
+            yield self
+
+    def compare(self, what):
+        """Each recorded int8 conv exactly equal to int8_conv_reference, each
+        recorded skinning within SKIN_ATOL of skinning_reference; → a
+        summary for the log and the kernels line."""
+        from airpose_tpu_torch.bodymodel import cuda_lbs
+        from airpose_tpu_torch.ops import int8_conv as ic
+
+        conv_err, crops = 0.0, set()
+        with torch.no_grad():
+            for v in self.convs.values():
+                got = ic.int8_conv_cuda(**v)
+                want = ic.int8_conv_reference(**v)
+                got, want = ((got, want) if isinstance(got, tuple) else ((got,), (want,)))
+                for g, w in zip(got, want):
+                    check(g.dtype == w.dtype and g.shape == w.shape,
+                          f"{what}: int8 conv at {tuple(v['x'].shape)} gave {g.dtype} "
+                          f"{tuple(g.shape)}, the plain version {w.dtype} {tuple(w.shape)}")
+                    conv_err = max(conv_err, float((g.float() - w.float()).abs().max()))
+                crops.add(v["x"].shape[0])
+            skin_err = 0.0
+            for w, a, p in self.skins.values():
+                skin_err = max(skin_err, float((cuda_lbs.skinning_cuda(w, a, p) - cuda_lbs
+                                                .skinning_reference(w, a, p)).abs().max()))
+        out = {"int8_conv": {"shapes": len(self.convs), "batch_sizes": sorted(crops),
+                             "max_abs_err": conv_err},
+               "lbs_skinning": {"batch_sizes": sorted(s[0] for s in self.skins),
+                                "max_abs_err": skin_err}}
+        log(f"{what}: the kernels on the path's own inputs against their plain versions: "
+            + json.dumps(out))
+        check(conv_err == 0.0, f"{what}: the int8 conv kernel differs from its plain version "
+              f"by {conv_err} on the path's inputs (it is exact)")
+        check(skin_err <= SKIN_ATOL, f"{what}: skinning differs from its plain version by "
+              f"{skin_err} > {SKIN_ATOL} on the path's inputs")
+        return out
+
+
+def stage_marks(stamped, t0):
+    """{"[k/10]": (seconds since the previous stage ended, kernel counts)}
+    from each stage tag's last line (a stage may print more than one)."""
+    last = {}
+    for (t, line), counts in stamped:
+        if line.startswith("[") and "/10]" in line.split(" ", 1)[0]:
+            last[line.split(" ", 1)[0]] = (t, counts)
+    out, prev_t, prev_c = {}, t0, {k: 0 for k in kernel_counts()}
+    for tag, (t, counts) in sorted(last.items(), key=lambda kv: kv[1][0]):
+        out[tag] = {"s": t - prev_t, "lbs_skinning": counts["lbs_skinning"] - prev_c["lbs_skinning"],
+                    "int8_conv": counts["int8_conv"] - prev_c["int8_conv"]}
+        prev_t, prev_c = t, counts
+    return out
+
+
+def rehearsal_predicted(h5py_here):
+    """(skinning, int8 conv) launches of each stage of dress_rehearsal.run at
+    its defaults, from the code: one skinning launch a SMPL-X forward of any
+    batch (a pose in create_aerialpeople, a train step, an eval loss, the
+    eval metrics' prediction and GT, a summary grid, a gender group of
+    precompute_canonical_gt, the cross-view metric, the AirPose+ export), 52
+    int8 convs a trunk call."""
+    return {
+        "[1/10]": (3 * 2, 0),           # 3 subjects × 2 poses
+        "[2/10]": (2 + 1 + 6 + 1 + 1, 0),  # precompute: train's 2 genders, test's 1;
+                                        # 6 steps; 1 val batch; 1 grid
+        "[3/10]": (0, 0),
+        "[4/10]": (2 * (1 + 1 + 2), 3 * 52),  # per pass: precompute, the eval loss of
+                                        # its 1 batch, the metrics' 2; --int8: calibration,
+                                        # clip report, 1 batch
+        "[5-6/10]": (2 + 1, 0),         # 6 frames at B = 4: 2 eval losses, cross-view
+        "[7/10]": (48 + 1 + 1 + 3, 0),  # 48 steps, 1 full val batch, 1 grid; the eval
+        "[8/10]": (1, 0),               # the export (none in the joints-only loop)
+        "[9/10]": (0, 0),               # served and offline forwards skin nothing
+        "[9b/10]": (0, 0),
+        # mixed:// train and h36m:// eval: 11, as counted on the CPU at these settings
+        "[10/10]": (11 if h5py_here else 0, 0),
+    }
+
+
+def _chessboard_frames(root, K, square_m=0.05, n=6):
+    """tests/test_tools.py:91-126's warped-chessboard calibration frames."""
+    import cv2
+
+    sq = 40
+    tex = np.full(((7 + 2) * sq, (10 + 2) * sq), 255, np.uint8)
+    for r in range(7):
+        for c in range(10):
+            if (r + c) % 2 == 0:
+                tex[(r + 1) * sq:(r + 2) * sq, (c + 1) * sq:(c + 2) * sq] = 0
+    out = os.path.join(root, "calib_frames")
+    os.makedirs(out, exist_ok=True)
+    for k in range(n):
+        rvec = np.asarray([0.25 * np.sin(k), 0.25 * np.cos(1.3 * k), 0.1 * k])
+        tvec = np.asarray([-0.25 + 0.02 * k, -0.18, 1.2 + 0.1 * k])
+        plane = np.asarray([[0, 0, 0], [10 * square_m, 0, 0], [10 * square_m, 7 * square_m, 0],
+                            [0, 7 * square_m, 0]], np.float32)
+        uv, _ = cv2.projectPoints(plane, rvec, tvec, K, np.zeros(5))
+        src = np.asarray([[sq, sq], [11 * sq, sq], [11 * sq, 8 * sq], [sq, 8 * sq]], np.float32)
+        H, _ = cv2.findHomography(src, uv.reshape(-1, 2))
+        cv2.imwrite(os.path.join(out, f"{k:03d}.png"),
+                    cv2.warpPerspective(tex, H, (640, 480), borderValue=255))
+    return out
+
+
+def _aruco_frames(root, marker, n=4):
+    """tests/test_tools.py:129-140's ArUco capture frames."""
+    import cv2
+
+    out = os.path.join(root, "capture_frames")
+    os.makedirs(out, exist_ok=True)
+    for k in range(n):
+        frame = np.full((480, 640), 255, np.uint8)
+        frame[140:340, 200 + 10 * k:400 + 10 * k] = marker
+        cv2.imwrite(os.path.join(out, f"{k:03d}.jpg"), frame)
+    return out
+
+
+def phase_fixtures(root, card):
+    """14a: create_aerialpeople at its defaults on the 10,475-vertex body,
+    with the kernel and with the plain skinning; the capture and the
+    TotalCapture db writers."""
+    from airpose_tpu_torch import bodymodel
+    from airpose_tpu_torch.tools import create_aerialpeople, synth_mocap_dbs, synth_real_capture
+
+    out = {}
+    runs = {}
+    for name, patch in (("kernel", contextlib.nullcontext()),
+                        ("plain", mock.patch.object(bodymodel, "smplx_forward", partial(
+                            bodymodel.smplx_forward, use_kernels=False)))):
+        d = os.path.join(root, f"aerialpeople_{name}")
+        reset_kernel_counts()
+        t = time.perf_counter()
+        with patch:
+            create_aerialpeople.main(["--out", d, "--num-vertices", "10475", "--render-blobs"])
+        torch.cuda.synchronize()
+        out[f"{name}_s"] = time.perf_counter() - t
+        out[f"{name}_launches"] = kernel_counts()["lbs_skinning"]
+        runs[name] = d
+    check(out["kernel_launches"] == 4 * 5 and out["plain_launches"] == 0,
+          f"create_aerialpeople: {out['kernel_launches']} skinning launches with the kernel "
+          f"and {out['plain_launches']} without, predicted 20 (one a pose) and 0")
+    rel, same_bb, n = 0.0, 0, 0
+    for f in sorted(os.listdir(os.path.join(runs["plain"], "pkls"))):
+        with open(os.path.join(runs["kernel"], "pkls", f), "rb") as fk, \
+                open(os.path.join(runs["plain"], "pkls", f), "rb") as fp:
+            k, p = pickle.load(fk), pickle.load(fp)
+        for key in ("smpl_vertices_wrt_origin", "smpl_joints_wrt_origin"):
+            rel = max(rel, float(np.abs(k[key] - p[key]).max() / np.abs(p[key]).max()))
+        same_bb += sum(np.array_equal(k[f"bb{c}"], p[f"bb{c}"]) for c in (0, 1))
+        n += 2
+    out["body_rel"], out["bb_equal"] = rel, f"{same_bb}/{n}"
+    check(rel <= EVAL_BODY_REL, f"create_aerialpeople body fields kernel vs plain {rel:.3g} "
+          f"> {EVAL_BODY_REL}")
+    t = time.perf_counter()
+    synth_real_capture.main(["--out", os.path.join(root, "synth_capture")])
+    synth_mocap_dbs.main(["--kind", "totalcap", "--out", os.path.join(root, "totalcap")])
+    out["writers_s"] = time.perf_counter() - t
+    for path in ("synth_capture/machine_2/images/000015.jpg", "synth_capture/machine_1/"
+                 "camera_calib.yml", "totalcap/dsets/totalcap_db.pkl", "totalcap/cameras.pkl"):
+        check(os.path.exists(os.path.join(root, path)), f"fixture writers: no {path}")
+    log(f"14a create_aerialpeople 20 poses: {out['kernel_launches']} skinning launches, "
+        f"{out['kernel_s']:.2f} s (plain {out['plain_s']:.2f} s), body fields kernel vs plain "
+        f"{rel:.3g}, boxes equal {out['bb_equal']}; writers {out['writers_s']:.2f} s [{card}]")
+    return out
+
+
+def phase_rehearsal(root, card):
+    """14b: dress_rehearsal.run in process at full width (224², 10,475
+    vertices, the JAX defaults otherwise), each stage's seconds and kernel
+    launches against the counts the code gives; then the module's entry
+    point as a subprocess at tests/test_dress_rehearsal.py's sizes, its
+    stage seconds read from its [k/10] lines as they arrive."""
+    import importlib.util
+
+    from airpose_tpu_torch.tools import dress_rehearsal
+
+    h5py_here = importlib.util.find_spec("h5py") is not None
+    predicted = rehearsal_predicted(h5py_here)
+    log(f"14b rehearsal predicted launches (skinning, int8_conv) a stage: {predicted}")
+    wd = os.path.join(root, "rehearsal")
+    stamped = _StagedLines(sys.stdout)
+    inputs = KernelInputs()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stamped), inputs.recording():
+        summary = dress_rehearsal.run(wd, img_res=224, verts=10475)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    stages = stage_marks(list(zip(stamped.lines, stamped.counts)), t0)
+    for tag, (skin, i8) in predicted.items():
+        check(tag in stages, f"rehearsal: no {tag} line")
+        got = stages[tag]
+        check((got["lbs_skinning"], got["int8_conv"]) == (skin, i8),
+              f"rehearsal {tag}: {got['lbs_skinning']} skinning and {got['int8_conv']} int8 "
+              f"conv launches, predicted {skin} and {i8}")
+    check(summary["converter_roundtrip_max_err"] == 0.0, "rehearsal: round trip not equal")
+    check(summary["benchtest_absdiff_pose_m1"] < 1e-3, "rehearsal: served pose diff")
+    # the card machine has cmake: stage 9b must build the native client and run
+    check("native_benchtest_absdiff_pose_m1" in summary,
+          "rehearsal: stage 9b left the native C++ client out")
+    check(summary["real_ft"]["loss"] < summary["real"]["loss"],
+          "rehearsal: stage 7's fine-tune did not improve")  # asserted in run() as well
+    for k in ("synth_bf16", "synth_int8", "real", "real_ft"):
+        check(all(np.isfinite(v) for v in summary[k].values()), f"rehearsal: {k} not finite")
+    check(h5py_here == ("h36m" in summary), "rehearsal: stage 10 ran without h5py or not "
+          "with it")
+    with open(os.path.join(wd, "rehearsal_summary.json")) as f:
+        check(json.load(f).keys() == summary.keys(), "rehearsal: the summary file's keys")
+    log(f"14b rehearsal in process at 224², 10,475 vertices: {total_s:.1f} s; stages "
+        + json.dumps(stages) + f" [{card}]")
+    log("14b rehearsal summary " + json.dumps(summary))
+    checked = inputs.compare("14b rehearsal")
+
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "airpose_tpu_torch.tools.dress_rehearsal", "--workdir",
+           os.path.join(root, "rehearsal_cli"), "--steps", "2", "--frames", "4", "--subjects",
+           "2", "--img_res", "64", "--ba_iters", "2", "3", "--verts", "60", "--batch_size", "2",
+           "--ft_steps", "8"]
+    t0 = time.perf_counter()
+    lines = []
+    with subprocess.Popen(cmd, cwd=root_dir, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True) as proc:
+        try:
+            for line in proc.stdout:
+                lines.append((time.perf_counter(), line.rstrip("\n")))
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+    cli_s = time.perf_counter() - t0
+    check(rc == 0, f"the dress_rehearsal entry point exited {rc}: "
+          + " | ".join(ln for _, ln in lines[-15:]))
+    zeros = {k: 0 for k in kernel_counts()}
+    cli_stages = {tag: round(v["s"], 2) for tag, v in
+                  stage_marks([(tl, zeros) for tl in lines], t0).items()}
+    with open(os.path.join(root, "rehearsal_cli", "rehearsal_summary.json")) as f:
+        cli_summary = json.load(f)
+    check(cli_summary["benchtest_absdiff_pose_m1"] < 1e-3, "rehearsal CLI: served pose diff")
+    log(f"14b rehearsal entry point (64², 60 vertices, 8 fine-tune steps): exit {rc} after "
+        f"{cli_s:.1f} s, stage seconds {cli_stages} [{card}]")
+    return {"in_process": {"seconds": total_s, "stages": stages,
+                           "predicted": {k: list(v) for k, v in predicted.items()},
+                           "summary": summary, "kernels_vs_plain": checked},
+            "entry_point": {"seconds": cli_s, "stages": cli_stages}}
+
+
+ROOFLINE_LENGTH = 10
+
+
+def phase_roofline(dev, root, card, phase8_step_ms):
+    """14c: train_roofline at B = 30 of 224². Its entry point over the eight
+    stages once each (one timed iteration: the smoke of the CLI and its
+    skinning launches); then each stage on its own copy of the model,
+    timed once: CUDA events over ROOFLINE_LENGTH iterations for its ms and
+    peak memory, then 3 iterations under utils/profiling.trace for its
+    device busy ms; and the full step and the trunk with --remat. The
+    split and the idle shares come from that one timing."""
+    from torch.autograd import DeviceType
+
+    from airpose_tpu_torch.tools import train_roofline as tr
+    from airpose_tpu_torch.utils.profiling import trace
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    results = tr.main(["--batch", "30", "--img", "224", "--length", "1"])
+    main_s = time.perf_counter() - t0
+    launches = kernel_counts()["lbs_skinning"]
+    # full, loss_fwd and loss_fwdbwd each skin 30 × 2 bodies once an
+    # iteration; the synthetic batch's GT, once
+    want = 3 * (1 + tr.WARMUP) + 1
+    check(launches == want, f"train_roofline: {launches} skinning launches, predicted {want}")
+    check(set(results) == set(tr.ALL_STAGES) and all(np.isfinite(v) and v > 0
+                                                     for v in results.values()),
+          f"train_roofline stages {results}")
+    model, smplx_params, cfg, batch = tr.build(30, 224, dev)
+    detail = {}
+    for remat in (False, True):
+        names = tr.ALL_STAGES if not remat else ("full", "fwdbwd_trunk")
+        for name, (fn, c0) in tr.stage_fns(model, smplx_params, cfg, batch, names,
+                                           remat).items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = tr.time_stage(fn, c0, ROOFLINE_LENGTH, dev) * 1e3
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            with trace(os.path.join(root, "roofline_trace", name + ("_remat" * remat))) as prof:
+                c = c0
+                for _ in range(3):
+                    c = fn(c)
+            busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)
+                       and e.name not in ("forward", "backward", "optimizer")) / 1e3 / 3
+            detail[name + (" --remat" if remat else "")] = {
+                "ms": ms, "busy_ms": busy, "idle_share": 1 - busy / ms, "peak_gib": peak}
+            del fn, c0, c
+            torch.cuda.empty_cache()
+    r = {k: detail[k]["ms"] for k in tr.ALL_STAGES}
+    split = {"trunk fwd+bwd": r["fwdbwd_trunk"],
+             "IEF+heads fwd+bwd": r["fwdbwd_model"] - r["fwdbwd_trunk"],
+             "SMPL-X+loss fwd+bwd": r["loss_fwdbwd"], "optimizer": r["opt"],
+             "residual": r["full"] - r["fwdbwd_model"] - r["loss_fwdbwd"] - r["opt"]}
+    log(f"14c train_roofline entry point B = 30 of 224², 1 iteration a stage ({main_s:.1f} s, "
+        f"{launches} skinning launches): ms {({k: v * 1e3 for k, v in results.items()})} [{card}]")
+    log(f"14c per stage over {ROOFLINE_LENGTH} iterations (ms, busy ms, idle share, peak GiB "
+        f"over the model): " + json.dumps(detail) + f" [{card}]")
+    log(f"14c split of the full step {split}; phase 8's step {phase8_step_ms:.3f} ms [{card}]")
+    return {"ms": r, "split": split, "detail": detail, "skinning_launches": launches,
+            "phase8_step_ms": phase8_step_ms, "entry_point_s": main_s}
+
+
+def phase_qat_posture(card):
+    """14d: qat_posture at B = 30 of 224², two batches and a held-out one,
+    2 + 2 steps (cut from the config of record's 240 + 160): every arm
+    finite, the int8 conv launches as the code gives them."""
+    from airpose_tpu_torch.tools import qat_posture
+
+    pre, ft = 2, 2
+    inputs = KernelInputs()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with inputs.recording():
+        results = qat_posture.main(["--batch", "30", "--img", "224", "--num_batches", "2",
+                                    "--steps_pre", str(pre), "--steps_ft", str(ft)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernel_counts()
+    # calibration (one dynamic trunk call) and four deployed arms: 52 convs each;
+    # skinning once for the synthetic dataset's GT, once a train step, once in
+    # the eval step and once a deployed loss
+    want = {"int8_conv": 52 * (1 + 4), "lbs_skinning": 1 + pre + 3 * ft + 1 + 4}
+    check(all(np.isfinite(v) for v in results.values()) and len(results) == 5,
+          f"qat_posture arms {results}")
+    for k, v in want.items():
+        check(counts[k] == v, f"qat_posture: {counts[k]} {k} launches, predicted {v}")
+    log(f"14d qat_posture B = 30 of 224², {pre} + {ft} steps: {results}, launches "
+        f"{counts}, {seconds:.1f} s [{card}]")
+    return {"results": results, "launches": counts, "seconds": seconds,
+            "kernels_vs_plain": inputs.compare("14d qat_posture")}
+
+
+def phase_prepare(root, card):
+    """14e: prepare_real_capture and calibration on generated frames;
+    to_hdf5 runs only where h5py is."""
+    import importlib.util
+
+    import cv2
+
+    from airpose_tpu_torch.data.real import load_calib_yml
+    from airpose_tpu_torch.tools import calibration, prepare_real_capture
+
+    out = {"cv2": cv2.__version__, "aruco": hasattr(cv2, "aruco")}
+    t = time.perf_counter()
+    K_true = np.asarray([[600.0, 0, 320], [0, 610.0, 240], [0, 0, 1]])
+    calib = _chessboard_frames(root, K_true)
+    frames = [cv2.imread(os.path.join(calib, n)) for n in sorted(os.listdir(calib))]
+    K, _, rms = calibration.calibrate_chessboard(frames, square_size=0.05)
+    check(abs(K[0, 0] / 600.0 - 1) < 0.15 and rms < 1.0, f"chessboard calibration K {K}")
+    machine = os.path.join(root, "machine_1")
+    if out["aruco"]:
+        capture = _aruco_frames(root, calibration.generate_aruco_marker(0, 200))
+        prepare_real_capture.main(["--machine_dir", machine, "--calib", calib, "--capture",
+                                   capture, "--calib_stride", "1", "--square_size", "0.05",
+                                   "--marker_length", "0.5", "--plot-markers"])
+        with open(os.path.join(machine, "markerposes_corrected_all.pkl"), "rb") as f:
+            poses = pickle.load(f)
+        check(len(poses) == 4 and all("0" in v for v in poses.values()),
+              f"prepare_real_capture: markers in {len(poses)} of 4 frames")
+        out["marker_distance_m"] = float(np.linalg.norm(poses["000000"]["0"]["tvec"]))
+    else:
+        log("14e this OpenCV has no cv2.aruco: the ArUco generation, detection and the "
+            "markerposes step are left out")
+        prepare_real_capture.main(["--machine_dir", machine, "--calib", calib,
+                                   "--calib_stride", "1", "--square_size", "0.05",
+                                   "--skip-aruco"])
+    Ky = load_calib_yml(os.path.join(machine, "camera_calib.yml"))
+    check(abs(Ky[0, 0] / 600.0 - 1) < 0.15, f"prepare_real_capture K {Ky}")
+    if importlib.util.find_spec("h5py") is None:
+        log("14e h5py is not installed here: to_hdf5 is left out")
+        out["to_hdf5"] = "left out: no h5py"
+    else:
+        from airpose_tpu_torch.tools import to_hdf5
+
+        n = to_hdf5.export_split(os.path.join(root, "aerialpeople_kernel"), "train",
+                                 os.path.join(root, "train.h5"))
+        out["to_hdf5"] = f"{n} samples"
+    out["seconds"] = time.perf_counter() - t
+    log(f"14e real-capture preparation: {out} [{card}]")
+    return out
+
+
+def phase_stem_batch(dev, card):
+    """The int8 trunk's bf16 stem (ops/int8_trunk.int8_stem) on one crop
+    alone and as the first of 60, with cuDNN's deterministic mode off and
+    on: is the crop's map the same?"""
+    from airpose_tpu_torch.models import AirPoseTwoView
+    from airpose_tpu_torch.ops import int8_trunk
+
+    qp = int8_trunk.quantize_trunk_params(AirPoseTwoView(seed=0).to(dev).trunk.state_dict())
+    crops = torch.randn(60, 224, 224, 3, generator=torch.Generator().manual_seed(3)).to(dev)
+    out = {}
+    flag = torch.backends.cudnn.deterministic
+    try:
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            with torch.no_grad():
+                one = int8_trunk.int8_stem(qp["stem"], crops[:1])[0].float()
+                many = int8_trunk.int8_stem(qp["stem"], crops)[0].float()
+                feats = [int8_trunk.resnet50_int8_infer(qp, x, int8_trunk.calibrate_act_scales(
+                    qp, crops[:2]))[0] for x in (crops[:1], crops)]
+            out[f"deterministic={det}"] = {
+                "stem_max_diff": float((one - many).abs().max()),
+                "stem_differing_share": float((one != many).float().mean()),
+                "int8_features_max_diff": float((feats[0] - feats[1]).abs().max())}
+    finally:
+        torch.backends.cudnn.deterministic = flag
+    log(f"14 int8 stem at B = 1 vs B = 60 (crop 0): {out} [{card}]")
+    return out
+
+
+def phase_tools(dev, card, phase8_step_ms):
+    """Phase 14 in its own temporary directory."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="airpose_phase14_") as root:
+        for name, fn in (("fixtures", lambda: phase_fixtures(root, card)),
+                         ("rehearsal", lambda: phase_rehearsal(root, card)),
+                         ("roofline", lambda: phase_roofline(dev, root, card, phase8_step_ms)),
+                         ("qat_posture", lambda: phase_qat_posture(card)),
+                         ("prepare", lambda: phase_prepare(root, card)),
+                         ("stem_batch", lambda: phase_stem_batch(dev, card))):
+            t = time.perf_counter()
+            out[name] = fn()
+            out[name + "_s"] = time.perf_counter() - t
+            torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2878,6 +3394,12 @@ def main():
         phase13["seconds"] = time.perf_counter() - t13
     log(f"phase 13: {phase13['seconds']:.1f} s [{card}]")
     log(json.dumps({"phase13": phase13}))
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    phase14 = phase_tools(dev, card, train["step_ms"])
+    phase14["seconds"] = time.perf_counter() - t14
+    log(f"phase 14: {phase14['seconds']:.1f} s [{card}]")
+    log(json.dumps({"phase14": phase14}))
     # launches: kernel launches in the main path's run of the chain that uses
     # each kernel (int8_block: its 42 conv launches, beside its 13 block calls)
     launches["int8_conv"] = int8_launches["int8"]["int8_conv"]
@@ -2945,6 +3467,27 @@ def main():
         f"staged int8, 3 rounds × {n13} frames × 2 views":
             phase13["staged"]["int8"]["launches"]}
     int8_row["at_1_crop"] = int8_at_1_crop
+    # launches on phase 14's paths, each counted in its run: skinning once a
+    # pose of create_aerialpeople, in each rehearsal stage, in the roofline's
+    # full and loss stages and in qat_posture; the int8 conv in the
+    # rehearsal's --int8 eval and in qat_posture's calibration and four arms
+    rehearsal = phase14["rehearsal"]["in_process"]["stages"]
+    kernels[0]["phase14_launches"] = {
+        "create_aerialpeople, 20 poses": phase14["fixtures"]["kernel_launches"],
+        **{f"dress rehearsal {tag}": v["lbs_skinning"] for tag, v in rehearsal.items()},
+        "train_roofline entry point, 1 iteration and 2 warm-up a stage":
+            phase14["roofline"]["skinning_launches"],
+        "qat_posture, 2 + 2 steps": phase14["qat_posture"]["launches"]["lbs_skinning"]}
+    int8_row["phase14_launches"] = {
+        "dress rehearsal [4/10] --int8 eval": rehearsal["[4/10]"]["int8_conv"],
+        "qat_posture, calibration and 4 deployed arms":
+            phase14["qat_posture"]["launches"]["int8_conv"]}
+    # each kernel on the inputs phase 14's rehearsal and qat_posture gave it,
+    # at every shape, against its plain version
+    checked = {"dress rehearsal": phase14["rehearsal"]["in_process"]["kernels_vs_plain"],
+               "qat_posture": phase14["qat_posture"]["kernels_vs_plain"]}
+    for row, name in ((kernels[0], "lbs_skinning"), (int8_row, "int8_conv")):
+        row["phase14_vs_plain"] = {part: v[name] for part, v in checked.items()}
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,temperature.gpu,"
          "power.draw", "--format=csv"],

@@ -437,7 +437,7 @@ def test_cli_synthetic_checkpoints_and_refusals(tmp_path, capsys):
     assert _rows(out, "pred_angles0") == 5
     with open(out, "rb") as f:
         assert pickle.load(f)[0][0]["output"]["pred_vertices_cam0"].shape == (2, 300, 3)
-    for bad, msg in ((["--mesh", "2"], "ROADMAP item 11"),
+    for bad, msg in ((["--mesh", "2"], 'ROADMAP item "Multi-device"'),
                      (["--ckpt", str(tmp_path / "ckpts")], "orbax")):
         with pytest.raises(SystemExit):
             tcr.main(_cli(out, "--datapath", "synthetic://5", *bad))

@@ -365,3 +365,22 @@ def test_quantize_trunk_blocks_matches_jax(setup):
                 assert torch.equal(g[k].reshape(v.shape), v), k
             else:
                 assert g[k] == v, k
+
+
+def test_int8_trunk_is_batch_invariant(setup):
+    """One crop's int8 features alone (B = 1) and as the first of 60 crops
+    (the folded two-view batch of compile_results --int8 at B = 30): JAX's
+    op-by-op int8 trunk and the port's on the CPU, each on the carried
+    tables. Measured equal bit for bit in both packages; the card's cuDNN
+    stem is checked the same way in chip_smoke.py phase 14."""
+    qp, scales, _ = setup["carried"]
+    crops = np.random.default_rng(3).normal(size=(60, IMG, IMG, 3)).astype(np.float32) * 0.3
+    feats = {}
+    for n in (1, 60):
+        x = crops[:n]
+        feats["jax", n] = np.asarray(jq.resnet50_int8_infer(
+            setup["qp"], jnp.asarray(x), act_scales=setup["scales"]))[0]
+        feats["port", n] = tq.resnet50_int8_infer(qp, torch.from_numpy(x), scales).numpy()[0]
+    np.testing.assert_array_equal(feats["jax", 60], feats["jax", 1])
+    np.testing.assert_array_equal(feats["port", 60], feats["port", 1])
+    np.testing.assert_array_equal(feats["port", 1], feats["jax", 1])

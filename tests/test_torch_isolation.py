@@ -152,6 +152,48 @@ def test_serving_clis_raise_without_cuda(tmp_path):
     assert not (tmp_path / "missing").exists()
 
 
+def test_tools_import_neither_jax_cv2_nor_h5py():
+    """The tools and the profiling utilities import OpenCV, h5py and
+    matplotlib only inside the functions that use them."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import airpose_tpu_torch.tools, airpose_tpu_torch.utils.profiling\n"
+        "for m in pkgutil.iter_modules(airpose_tpu_torch.tools.__path__):\n"
+        "    importlib.import_module('airpose_tpu_torch.tools.' + m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',"
+        " 'h5py', 'matplotlib', 'airpose_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_tool_clis_raise_without_cuda(tmp_path):
+    """create_aerialpeople, the dress rehearsal, train_roofline,
+    qat_posture, to_hdf5 and the profiling StepTimer take the card unless
+    given --platform cpu (device="cpu"): without CUDA each raises before it
+    writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from airpose_tpu_torch.tools import (create_aerialpeople, dress_rehearsal, qat_posture,
+                                         to_hdf5, train_roofline)
+    from airpose_tpu_torch.utils.profiling import StepTimer
+
+    missing = str(tmp_path / "missing")
+    for main, argv in (
+            (create_aerialpeople.main, ["--out", missing]),
+            (dress_rehearsal.main, ["--workdir", missing]),
+            (train_roofline.main, ["--batch", "1", "--img", "32"]),
+            (qat_posture.main, []),
+            (to_hdf5.main, ["--datapath", missing, "--out", missing])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StepTimer()
+    assert not (tmp_path / "missing").exists()
+
+
 FAKE_NVCC = """#!/bin/sh
 # records its output path, takes a moment, writes a stand-in library
 while [ $# -gt 0 ]; do
