@@ -29,8 +29,14 @@ Data paths:
 Flags and defaults are the JAX CLI's, with three differences: ``--platform
 {cpu,cuda}`` (the card by default; raises without CUDA); ``--ckpt`` is a
 checkpoint file the port's trainer writes (train.checkpoint.CheckpointManager;
-the port reads no orbax directory); and ``--mesh N`` takes only N = 1, one
-card (data-parallel eval over several cards is the ROADMAP item "Multi-device").
+the port reads no orbax directory); and ``--mesh N`` is the data-parallel
+eval over the N ranks of ``torchrun --nproc-per-node N`` (one card a rank
+with NCCL; gloo processes on the CPU), where the JAX CLI takes the first N
+devices of one process: each rank evaluates its rows of every batch (a batch
+whose rows do not divide N runs whole on every rank, as JAX replicates it),
+every rank gathers the predictions, and rank 0 writes the outputs pkl, the
+same rows in the same order as one process writes. N must be the group's
+size (1 without torchrun).
 
 Usage:
   python -m airpose_tpu_torch.eval.compile_results --model copenet_twoview \
@@ -52,11 +58,28 @@ from torch import nn
 
 from .. import constants as C
 from .. import resolve_device
+from ..parallel.launch import is_main_rank
 from ..train.state import TrainState
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def _sharded_eval(eval_step, mesh):
+    """``eval_step`` (made with ``mesh``) over ``mesh``'s ranks: each rank
+    evaluates its rows of the batch; every rank gets every row's
+    predictions back, in order, and the metrics of the whole batch."""
+    if mesh is None:
+        return eval_step
+    from ..parallel.mesh import gather_rows, shard_batch
+
+    def step(state, batch):
+        rows = int(batch["images"].shape[0])
+        metrics, preds = eval_step(state, shard_batch(batch, mesh))
+        return metrics, gather_rows(preds, mesh, rows)
+
+    return step
 
 
 def outputs_to_ba_init(outputs: List[Dict], vposer_params):
@@ -300,7 +323,7 @@ def _full_body_fields(smplx_params, rotmat, betas, trans, intr, focal, in_trans,
 
 def compile_twoview(state, model, smplx_params, batches: Iterable[Dict], cfg,
                     save_full=False, int8=False, int8_calib_n=8,
-                    use_kernels: bool = True, device=None):
+                    use_kernels: bool = True, device=None, mesh=None):
     """Eval every batch, return (outputs list, metrics dict).
 
     ``int8`` evaluates the int8 PTQ serving configuration instead of the
@@ -308,7 +331,8 @@ def compile_twoview(state, model, smplx_params, batches: Iterable[Dict], cfg,
     ``int8_calib_n`` eval images (clip rates printed, see _int8_shim).
     ``use_kernels=False`` skins with the plain version. Runs on ``device``
     (CUDA by default; raises without it), where the model, the body model
-    and the batches are."""
+    and the batches are; with ``mesh``, each rank evaluates its rows of every
+    batch (``_sharded_eval``)."""
     from ..eval.metrics import twoview_eval_metrics
     from ..geometry.rotations import rotmat_to_aa
     from ..train.losses import twoview_loss
@@ -319,7 +343,8 @@ def compile_twoview(state, model, smplx_params, batches: Iterable[Dict], cfg,
         model, state, batches = _int8_shim(model, state, batches, int8_calib_n)
     _, eval_step = make_twoview_step_fns(
         model, smplx_params, cfg, make_optimizer(cfg.lr),
-        loss=partial(twoview_loss, use_kernels=use_kernels), device=device)
+        loss=partial(twoview_loss, use_kernels=use_kernels), device=device, mesh=mesh)
+    eval_step = _sharded_eval(eval_step, mesh)
 
     outputs = []
     acc = {k: [] for k in ("rotmat", "betas", "trans", "gt_pose", "gt_orient", "gt_betas",
@@ -369,12 +394,13 @@ def compile_twoview(state, model, smplx_params, batches: Iterable[Dict], cfg,
 
 
 def compile_h36m_twoview(state, model, smplx_params, batches: Iterable[Dict], cfg,
-                         int8=False, int8_calib_n=8, use_kernels: bool = True, device=None):
+                         int8=False, int8_calib_n=8, use_kernels: bool = True, device=None,
+                         mesh=None):
     """Eval over h36m:// batches: outputs-pkl rows (pred angles, trans and
     betas, and the 17-joint cam-frame GT) and the H36M metrics, root-aligned
     MPJPE (protocol 1), PA-MPJPE (protocol 2) and pelvis MPE per view
-    (metrics.h36m_eval_metrics). ``int8``, ``use_kernels`` and ``device`` as
-    in compile_twoview."""
+    (metrics.h36m_eval_metrics). ``int8``, ``use_kernels``, ``device`` and
+    ``mesh`` as in compile_twoview."""
     from ..eval.metrics import h36m_eval_metrics
     from ..geometry.rotations import rotmat_to_aa
     from ..train.losses import joints_loss
@@ -385,7 +411,8 @@ def compile_h36m_twoview(state, model, smplx_params, batches: Iterable[Dict], cf
         model, state, batches = _int8_shim(model, state, batches, int8_calib_n)
     _, eval_step = make_twoview_step_fns(
         model, smplx_params, cfg, make_optimizer(cfg.lr),
-        loss=partial(joints_loss, use_kernels=use_kernels), device=device)
+        loss=partial(joints_loss, use_kernels=use_kernels), device=device, mesh=mesh)
+    eval_step = _sharded_eval(eval_step, mesh)
 
     outputs = []
     pr_l, pb_l, pt_l, gj_l = [], [], [], []
@@ -417,11 +444,12 @@ def compile_h36m_twoview(state, model, smplx_params, batches: Iterable[Dict], cf
 
 
 def compile_singleview(state, model, smplx_params, batches: Iterable[Dict], cfg, family,
-                       int8=False, int8_calib_n=8, use_kernels: bool = True, device=None):
+                       int8=False, int8_calib_n=8, use_kernels: bool = True, device=None,
+                       mesh=None):
     """Eval the hmr / muhmr / copenet_singleview families: outputs pkl in
     the reference single-view format (pred_angles; pred_smpltrans through
     the weak-camera reprojection for the weak families) and MPJPE /
-    PA-MPJPE / MPE. ``int8``, ``use_kernels`` and ``device`` as in
+    PA-MPJPE / MPE. ``int8``, ``use_kernels``, ``device`` and ``mesh`` as in
     compile_twoview."""
     from ..eval.metrics import canonical_joints, mpe, mpjpe, pa_mpjpe
     from ..geometry.projection import weak_cam_crop_to_full_trans
@@ -432,7 +460,9 @@ def compile_singleview(state, model, smplx_params, batches: Iterable[Dict], cfg,
     if int8:
         model, state, batches = _int8_shim(model, state, batches, int8_calib_n)
     _, eval_step = make_singleview_step_fns(model, smplx_params, cfg, make_optimizer(cfg.lr),
-                                            family, use_kernels=use_kernels, device=device)
+                                            family, use_kernels=use_kernels, device=device,
+                                            mesh=mesh)
+    eval_step = _sharded_eval(eval_step, mesh)
 
     outputs = []
     rms, betas_all, trans_all, gt_trans_all = [], [], [], []
@@ -521,11 +551,11 @@ def robust_crossview_consistency(smplx_params, pred_rotmat: np.ndarray,
 def compile_real_twoview(state, model, smplx_params, vposer_params, ds, batch_size: int,
                          cfg, save_full=False, err_idcs: Optional[np.ndarray] = None,
                          out_size: int = 224, int8=False, int8_calib_n=8,
-                         use_kernels: bool = True, device=None):
+                         use_kernels: bool = True, device=None, mesh=None):
     """Real-data (self-supervised regime) compile: outputs pkl with the raw
     135-d pose state per view (the benchtest interchange) and the robust
     cross-view consistency metric; no 3D GT exists on this path. ``int8``,
-    ``use_kernels`` and ``device`` as in compile_twoview."""
+    ``use_kernels``, ``device`` and ``mesh`` as in compile_twoview."""
     from ..geometry.rotations import rot6d_to_rotmat, rotmat_to_aa
     from ..train.loop import make_real_twoview_step_fns
     from ..train.state import make_optimizer
@@ -535,7 +565,8 @@ def compile_real_twoview(state, model, smplx_params, vposer_params, ds, batch_si
         model, state, batches = _int8_shim(model, state, batches, int8_calib_n)
     _, eval_step = make_real_twoview_step_fns(model, smplx_params, vposer_params, cfg,
                                               make_optimizer(cfg.lr), use_kernels=use_kernels,
-                                              device=device)
+                                              device=device, mesh=mesh)
+    eval_step = _sharded_eval(eval_step, mesh)
 
     outputs, losses = [], []
     all_rotmat, all_betas, all_extr = [], [], []
@@ -594,13 +625,14 @@ def compile_real_twoview(state, model, smplx_params, vposer_params, ds, batch_si
 
 def compile_real_singleview(state, model, smplx_params, vposer_params, ds, batch_size: int,
                             cfg, cam: int, out_size: int = 224, int8=False,
-                            int8_calib_n=8, use_kernels: bool = True, device=None):
+                            int8_calib_n=8, use_kernels: bool = True, device=None,
+                            mesh=None):
     """Real-data baseline (hmr) compile for ONE camera: the reference
     evaluates two hmr nets pinned to cam0/cam1 through ``first_cam`` and
     writes one outputs pkl per camera (AirPose+ reads them as the baseline
     trajectories). ``ds`` must be constructed with ``first_cam=cam`` so view
-    0 is that camera. ``int8``, ``use_kernels`` and ``device`` as in
-    compile_twoview."""
+    0 is that camera. ``int8``, ``use_kernels``, ``device`` and ``mesh`` as
+    in compile_twoview."""
     from ..geometry.projection import weak_cam_crop_to_full_trans
     from ..geometry.rotations import rot6d_to_rotmat, rotmat_to_aa
     from ..train.loop import make_real_singleview_step_fns
@@ -611,7 +643,8 @@ def compile_real_singleview(state, model, smplx_params, vposer_params, ds, batch
         model, state, batches = _int8_shim(model, state, batches, int8_calib_n)
     _, eval_step = make_real_singleview_step_fns(
         model, smplx_params, vposer_params, cfg, make_optimizer(cfg.lr), "hmr_camswap_difffl",
-        use_kernels=use_kernels, device=device)
+        use_kernels=use_kernels, device=device, mesh=mesh)
+    eval_step = _sharded_eval(eval_step, mesh)
     focal_full = ds.focal_pairs()[cam]
 
     outputs, losses = [], []
@@ -643,6 +676,8 @@ def compile_real_singleview(state, model, smplx_params, vposer_params, ds, batch
 # ---------------------------------------------------------------------------
 
 def _print_and_dump_metrics(metrics_by_split: Dict, path: str) -> None:
+    if not is_main_rank():
+        return
     for split, metrics in metrics_by_split.items():
         for k, v in metrics.items():
             print(f"{split}_{k}: {v:.4f}")
@@ -677,8 +712,10 @@ def main(argv=None):
                    help="activation-calibration sample size for --int8; the printed clip "
                         "rates tell whether it covered the data's activation range")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="devices of the data-parallel eval; the port evaluates on one card "
-                        "(N = 1)")
+                   help="data-parallel eval over the N ranks of torchrun --nproc-per-node N "
+                        "(one card a rank): each rank evaluates its rows of every batch, "
+                        "rank 0 writes the outputs (use a --batch_size divisible by N; other "
+                        "batches run whole on every rank, correct but unaccelerated)")
     p.add_argument("--platform", default=None, choices=("cpu", "cuda"),
                    help="the device (the CUDA card by default; raises without it)")
     p.add_argument("--smplx_model_dir", default=None)
@@ -691,11 +728,20 @@ def main(argv=None):
     p.add_argument("--test_frames", type=int, nargs=2, default=(8000, 15000))
     args = p.parse_args(argv)
 
-    if args.mesh is not None and args.mesh > 1:
-        p.error(f"--mesh {args.mesh}: data-parallel eval over several cards is not ported "
-                "yet (the ROADMAP item \"Multi-device\"); the port evaluates on one card, "
-                "--mesh 1")
     dev = resolve_device(args.platform)
+    mesh = None
+    if args.mesh:
+        from ..parallel.launch import init_from_env
+        from ..parallel.mesh import make_mesh
+
+        dev = init_from_env(dev) or dev
+        try:
+            mesh = make_mesh(args.mesh)
+        except ValueError as e:
+            p.error(f"--mesh {args.mesh}: {e}")
+        if args.batch_size % args.mesh:
+            print(f"WARNING: --batch_size {args.batch_size} not divisible by --mesh "
+                  f"{args.mesh}; batches will be replicated, not sharded", flush=True)
 
     from ..bodymodel import load_smplx_npz, synthetic_smplx_params
     from ..config import TrainConfig
@@ -731,7 +777,7 @@ def main(argv=None):
 
     per_split = []
     metrics_by_split = {}
-    kw = {"int8": args.int8, "int8_calib_n": args.int8_calib_n, "device": dev}
+    kw = {"int8": args.int8, "int8_calib_n": args.int8_calib_n, "device": dev, "mesh": mesh}
     if args.datapath.startswith("synthetic://"):
         n = int(args.datapath.split("//")[1] or 64)
         data = make_synthetic_dataset(smplx_params, n, seed=7)
@@ -821,9 +867,10 @@ def main(argv=None):
                         min(args.batch_size, len(ds)), cfg, cam, out_size=args.img_res, **kw)
                     cam_splits.append(outputs)
                     metrics_by_split[f"{split}_cam{cam}"] = metrics
-                with open(args.out + str(cam), "wb") as f:
-                    pickle.dump(cam_splits, f)
-                print(f"wrote {args.out}{cam}")
+                if is_main_rank():
+                    with open(args.out + str(cam), "wb") as f:
+                        pickle.dump(cam_splits, f)
+                    print(f"wrote {args.out}{cam}")
             _print_and_dump_metrics(metrics_by_split, args.out + ".metrics.json")
             return
         for split in args.split:
@@ -869,9 +916,10 @@ def main(argv=None):
             metrics_by_split[split] = metrics
 
     _print_and_dump_metrics(metrics_by_split, args.out + ".metrics.json")
-    with open(args.out, "wb") as f:
-        pickle.dump(per_split, f)
-    print(f"wrote {args.out} ({[len(o) for o in per_split]} batches per split)")
+    if is_main_rank():
+        with open(args.out, "wb") as f:
+            pickle.dump(per_split, f)
+        print(f"wrote {args.out} ({[len(o) for o in per_split]} batches per split)")
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.qat import fake_quant_act
+from ..parallel.mesh import active_group, global_batch_norm
 
 
 class Conv2d(nn.Conv2d):
@@ -42,7 +43,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     for the backward, so it must not change afterwards) and then corrects
     what torch wrote back to the biased variance flax keeps, with no pass
     over the activations.
-    ``num_batches_tracked`` is not counted (flax has no such counter)."""
+    ``num_batches_tracked`` is not counted (flax has no such counter).
+    Under ``parallel.data_parallel`` with more than one rank, train mode
+    normalizes with the global batch's statistics instead
+    (``parallel.global_batch_norm``), as GSPMD's BatchNorm does."""
 
     def __init__(self, c: int):
         super().__init__(c, eps=1e-5, momentum=0.1)  # flax momentum 0.9
@@ -51,6 +55,10 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        group = active_group()
+        if group is not None:
+            return global_batch_norm(x, self.weight, self.bias, self.running_mean,
+                                     self.running_var, self.momentum, self.eps, group)
         m, c = self.momentum, 1.0 - x.shape[1] / x.numel()  # c = (n − 1) / n
         updated = self.running_var.clone()
         y = F.batch_norm(x, self.running_mean, updated, self.weight, self.bias, True,

@@ -17,8 +17,10 @@ The trunk's folded-BN convolutions are quantized for inference:
     stem's output and the input of an int8 stage after a bf16 one; the
     dynamic path (``act_scales=None``, calibration) and the clip-rate
     diagnostic quantize every conv input in torch, on the bf16 map;
-  * the stem stays a folded bf16 conv; ``int8_stages`` keeps other stages
-    as folded bf16 convs too.
+  * the stem stays a folded bf16 conv, on a card the kernel of
+    ops/int8_stem.py, which sums in one order at every batch size;
+    ``int8_stages`` keeps other stages as folded bf16 convs too (cuDNN's, whose
+    order of summation depends on the batch size on a card).
 
 Quantized parameters (``quantize_trunk_params``) are a dict like the JAX
 one: ``"stem"`` {w (64, 3, 7, 7) bf16 OIHW, b f32} and per block
@@ -36,6 +38,7 @@ from torch.profiler import record_function
 from . import _build
 from .fused_bottleneck import fold_bn_into_conv
 from .int8_conv import int8_conv, int8_conv_reference, quantize
+from .int8_stem import stem_conv
 
 BF16 = torch.bfloat16
 STAGES = (3, 4, 6, 3)
@@ -139,8 +142,9 @@ def _fconv(x: torch.Tensor, conv: Dict, stride: int = 1) -> torch.Tensor:
 
 def int8_stem(stem: Dict, x: torch.Tensor) -> torch.Tensor:
     """The trunk's folded-BN bf16 stem: (N, H, W, 3) f32 → the
-    (N, H/4, W/4, 64) bf16 map the int8 layers read."""
-    h = _nhwc(F.conv2d(_nchw(x).to(BF16), stem["w"], stride=2, padding=3))
+    (N, H/4, W/4, 64) bf16 map the int8 layers read. The convolution is
+    ops/int8_stem.py's: the kernel on a card, the plain version on the CPU."""
+    h = stem_conv(x, stem["w"])
     # relu(bf16(f32(h) + b)) is monotone in h, so it commutes with the
     # max: pool first, then add and relu on a quarter of the values, in
     # place (bf16 out, without an f32 map)
@@ -161,8 +165,11 @@ def resnet50_int8_infer(qparams: Dict, x: torch.Tensor, act_scales: Optional[Dic
     folded-BN bf16 convs. Each int8 conv goes through ``conv``, any function
     with the signature of ``int8_conv.int8_conv`` (as
     ``int8_bottleneck.run_block`` takes one); by default ``int8_conv``, or
-    with ``use_kernels=False`` its plain version on any device. The GAP is
-    an f32 mean over the bf16 map, not rounded to bf16."""
+    with ``use_kernels=False`` its plain version on any device. The stem
+    runs ops/int8_stem.py's kernel on a card either way (held to its own
+    plain version apart): cuDNN's bf16 stem would sum in another order and
+    flip some bf16 roundings that the int8 layers carry on. The GAP is an
+    f32 mean over the bf16 map, not rounded to bf16."""
     conv_fn = conv or (int8_conv if use_kernels else int8_conv_reference)
     fused = act_scales is not None and _collect is None and _clip_collect is None
     order = [(stage, blk) for stage, blocks in enumerate(STAGES, start=1)

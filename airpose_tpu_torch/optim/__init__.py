@@ -3,6 +3,7 @@ from .bundle_adjust import (
     BAState,
     ba_debug_report,
     bundle_adjust,
+    bundle_adjust_sharded,
     export_results,
     init_from_predictions,
     joints_only_forward,
@@ -14,6 +15,7 @@ __all__ = [
     "BAState",
     "ba_debug_report",
     "bundle_adjust",
+    "bundle_adjust_sharded",
     "export_results",
     "init_from_predictions",
     "joints_only_forward",

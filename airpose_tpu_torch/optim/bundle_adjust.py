@@ -22,11 +22,9 @@ confidences every iteration), and the β regulariser penalises the optimised
 
 Each iteration is one forward, one backward and the Adam update on the
 card, with nothing read back: the loss trace stays on the device until the
-end of the run. Optimising a whole sequence across several cards
-(``bundle_adjust_sharded`` in the JAX package) is the ROADMAP item "Multi-device"; on one
-card ``--sharded`` optimises the sequence as one span through
-``bundle_adjust``, which is what the sharded function computes on a
-one-device mesh.
+end of the run. ``bundle_adjust_sharded`` optimises a whole sequence with
+its frames sharded over the ranks of a process group (parallel/mesh.py);
+``--sharded`` runs it over the torchrun group, or over this process alone.
 """
 
 import argparse
@@ -39,6 +37,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.launch import is_main_rank
+from ..parallel.mesh import Mesh, make_mesh
 from ..bodymodel import lbs as _lbs
 from ..bodymodel.smplx import SMPLXParams
 from ..bodymodel.vposer import VPoserParams, vposer_decode, vposer_encode
@@ -240,6 +240,138 @@ def bundle_adjust(smplx_params: SMPLXParams, vposer_params: VPoserParams, init: 
     return state, {"trace": trace.cpu().numpy(), **{k: float(v) for k, v in final.items()}}
 
 
+class _NextFirstRow(torch.autograd.Function):
+    """The next rank's ``row`` (rank 0's on the last rank), by an all-gather;
+    the backward all-gathers the ranks' gradients and takes the previous
+    rank's, so each gradient goes back to the rank whose row it is."""
+
+    @staticmethod
+    def forward(ctx, row, group, rank, n):
+        import torch.distributed as dist
+
+        ctx.group, ctx.rank, ctx.n = group, rank, n
+        parts = [torch.empty_like(row) for _ in range(n)]
+        dist.all_gather(parts, row.contiguous(), group=group)
+        return parts[(rank + 1) % n]
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(g) for _ in range(ctx.n)]
+        dist.all_gather(parts, g.contiguous(), group=ctx.group)
+        return parts[(ctx.rank - 1) % ctx.n], None, None, None
+
+
+def bundle_adjust_sharded(smplx_params: SMPLXParams, vposer_params: VPoserParams,
+                          init: BAState, openpose: torch.Tensor, alphapose: torch.Tensor,
+                          intr: torch.Tensor, cfg: BAConfig = BAConfig(),
+                          mesh: Mesh = None) -> Tuple[BAState, Dict]:
+    """``bundle_adjust`` of the whole sequence with its frame axis sharded
+    over ``mesh``'s data group (default: the process group, or this process
+    alone); every rank passes the same whole inputs and gets the whole
+    result. As in the JAX package (bundle_adjust.py:375-500):
+
+    * the frames pad to a multiple of the rank count with zero-confidence,
+      non-robust frames at a safe pose (identity 6D roots, τ_z = 10);
+    * the per-frame variables (z, φ, τ) and keypoints split into contiguous
+      blocks, one a rank; β is replicated and its gradient summed over the
+      ranks, so every rank takes the same β step;
+    * each rank's loss is its share of the global loss (the global
+      denominators, β's and z's regularisers divided over the ranks), so the
+      shares sum to ``bundle_adjust``'s loss;
+    * the temporal pair that straddles a boundary reads the next rank's first
+      frame inside the differentiated loss (``_NextFirstRow``, JAX's
+      ``ppermute`` halo, whose transpose returns the cotangent to that rank);
+      the pair from the last rank to rank 0 has weight 0, and non-robust
+      frames drop their pairs, as on one device.
+
+    Returns the unpadded state and ``trace`` (the global loss after each
+    update), ``loss`` and the final terms, summed over the ranks."""
+    import torch.distributed as dist
+
+    if mesh is None:
+        mesh = make_mesh()
+    n, rank, group = mesh.n_data, mesh.data_rank, mesh.group
+    N = int(init.z.shape[0])
+    pad = (-N) % n
+    kp, robust = _observations(openpose, alphapose, cfg)
+    robust_f = robust.float()
+    leaves = [t.detach() for t in init]
+    if pad:
+        kp = torch.cat([kp, kp.new_zeros((pad,) + tuple(kp.shape[1:]))])
+        robust_f = torch.cat([robust_f, robust_f.new_zeros(pad)])
+        z, phi, tau, beta = leaves
+        eye6 = phi.new_tensor([1.0, 0.0, 0.0, 1.0, 0.0, 0.0]).expand(pad, 2, 6)
+        leaves = [torch.cat([z, z.new_zeros(pad, z.shape[1])]), torch.cat([phi, eye6]),
+                  torch.cat([tau, tau.new_tensor([0.0, 0.0, 10.0]).expand(pad, 2, 3)]), beta]
+    # global pair weights: pair i couples frames (i, i + 1); the last pair
+    # (the wrap-around from the last rank to rank 0) is dead
+    pairw = torch.cat([robust_f[:-1] * robust_f[1:], robust_f.new_zeros(1)])
+    denom_2d = torch.clamp(robust_f.sum() * cfg.num_joints_2d, min=1.0)
+    denom_pairs = torch.clamp(pairw.sum(), min=1.0)
+    L = (N + pad) // n
+    rows = slice(rank * L, (rank + 1) * L)
+    kp_l, robust_l, pairw_l = kp[rows], robust_f[rows], pairw[rows]
+    leaves = [t[rows].clone() for t in leaves[:3]] + [leaves[3].clone()]
+
+    def halo(a):
+        """The next rank's first row of ``a`` (rank 0's on the last rank)."""
+        if group is None:
+            return a[:1]
+        return _NextFirstRow.apply(a[:1], group, rank, n)
+
+    def shard_loss(state: BAState):
+        loss_2d, theta_aa = _reprojection_terms(smplx_params, vposer_params, cfg, state,
+                                                kp_l, intr, robust_l, denom_2d)
+        # padded z rows stay 0: the mean's denominator is the true frame count
+        loss_vposer = (state.z ** 2).sum() / (N * 32)
+        loss_beta = (state.beta ** 2).mean() / n
+
+        def tdiff(a):
+            return _weighted_tdiff(torch.cat([a, halo(a)]), pairw_l, denom_pairs)
+
+        loss_temporal = (cfg.w_temporal_theta * tdiff(theta_aa)
+                         + cfg.w_temporal_rigid * (tdiff(state.phi[:, 0]) + tdiff(state.phi[:, 1])
+                                                   + tdiff(state.tau[:, 0])
+                                                   + tdiff(state.tau[:, 1])))
+        total = (loss_2d + cfg.w_beta * loss_beta + cfg.w_vposer * loss_vposer
+                 + cfg.w_temporal * loss_temporal)
+        return total, {"loss": total, "loss_2d": loss_2d, "loss_vposer": loss_vposer,
+                       "loss_beta": loss_beta, "loss_temporal": loss_temporal}
+
+    adam = Adam(cfg.lr)
+    losses = []  # this rank's share before each update
+    for train_z, n_iters in ((False, cfg.iters_stage1), (True, cfg.iters_stage2)):
+        trainable = leaves if train_z else leaves[1:]
+        for t in leaves:
+            t.requires_grad_(any(t is u for u in trainable))
+        opt_state = adam.init(trainable)
+        for _ in range(n_iters):
+            total, _ = shard_loss(BAState(*leaves))
+            losses.append(total.detach())
+            grads = list(torch.autograd.grad(total, trainable))
+            if group is not None:  # β is replicated: its step sees the global gradient
+                dist.all_reduce(grads[-1], group=group)
+            adam.update(grads, opt_state, trainable)
+    with torch.no_grad():
+        for t in leaves:
+            t.requires_grad_(False)
+        _, final = shard_loss(BAState(*leaves))
+        trace = losses[1:] + [final["loss"]] if losses else []
+        shares = torch.stack(trace + list(final.values()))
+        if group is not None:
+            dist.all_reduce(shares, group=group)
+            parts = [[torch.empty_like(t) for _ in range(n)] for t in leaves[:3]]
+            for out, t in zip(parts, leaves[:3]):
+                dist.all_gather(out, t.contiguous(), group=group)
+            leaves = [torch.cat(p)[:N] for p in parts] + [leaves[3]]
+        else:
+            leaves = [t[:N] for t in leaves[:3]] + [leaves[3]]
+    terms = dict(zip(final, shares[len(trace):].tolist()))
+    return BAState(*leaves), {"trace": shares[:len(trace)].cpu().numpy(), **terms}
+
+
 def ba_debug_report(smplx_params: SMPLXParams, vposer_params: VPoserParams, init: BAState,
                     openpose: torch.Tensor, alphapose: torch.Tensor, intr: torch.Tensor,
                     cfg: BAConfig = BAConfig()) -> Dict[str, Dict]:
@@ -334,8 +466,10 @@ def run_sequence(smplx_params: SMPLXParams, vposer_params: VPoserParams, dataset
     ``airpose_outputs``: the outputs pkl of ONE split): chunks of
     ``chunk_size`` frames, the temporal term coupling frames only within a
     chunk, on the device of the body models. ``sharded`` optimises the whole
-    sequence as one span instead: no chunk boundaries, one β for the
-    capture. Returns a result dict in the AirPose+ export layout."""
+    sequence jointly instead, its frames sharded over the process group
+    (``bundle_adjust_sharded``; one rank without a group): no chunk
+    boundaries, one β for the capture. Returns a result dict in the AirPose+
+    export layout."""
     from ..eval.compile_results import outputs_to_ba_init
 
     init = outputs_to_ba_init(airpose_outputs, vposer_params)
@@ -366,8 +500,9 @@ def run_sequence(smplx_params: SMPLXParams, vposer_params: VPoserParams, dataset
     spans = ([(0, n_frames)] if sharded
              else [(b, min(b + chunk_size, n_frames)) for b in range(0, n_frames, chunk_size)])
     for begin, end in spans:
-        state, metrics = bundle_adjust(smplx_params, vposer_params, span(init, begin, end),
-                                       openpose[begin:end], alphapose[begin:end], intr, cfg)
+        optimise = bundle_adjust_sharded if sharded else bundle_adjust
+        state, metrics = optimise(smplx_params, vposer_params, span(init, begin, end),
+                                  openpose[begin:end], alphapose[begin:end], intr, cfg)
         z[begin:end] = state.z.cpu().numpy()
         phi[begin:end] = state.phi.cpu().numpy()
         tau[begin:end] = state.tau.cpu().numpy()
@@ -421,9 +556,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic_verts", type=int, default=10475)
     p.add_argument("--chunk-size", type=int, default=2000)
     p.add_argument("--sharded", action="store_true",
-                   help="optimise the whole sequence jointly as one span (no chunk "
-                        "boundaries in the temporal term, one β for the capture); the port "
-                        "does it on one card (several cards: the ROADMAP item \"Multi-device\")")
+                   help="optimise the whole sequence jointly (no chunk boundaries in the "
+                        "temporal term, one β for the capture), its frames sharded over "
+                        "the ranks of torchrun --nproc-per-node N (one card a rank), or on "
+                        "this process's device alone")
     p.add_argument("--iters1", type=int, default=100)
     p.add_argument("--iters2", type=int, default=200)
     p.add_argument("--lr", type=float, default=0.01,
@@ -452,6 +588,10 @@ def optimize(args):
     from ..data import AircapDataset, CopenetRealDataset
 
     dev = resolve_device(args.platform)
+    if args.sharded:
+        from ..parallel.launch import init_from_env
+
+        dev = init_from_env(dev) or dev
     if args.smplx_model_dir:
         smplx_params = load_smplx_npz(args.smplx_model_dir)
     else:
@@ -485,10 +625,11 @@ def optimize(args):
     result = run_sequence(smplx_params, vposer_params, ds, outputs, cfg,
                           chunk_size=args.chunk_size, save_verts=args.save_verts,
                           sharded=args.sharded, debug_nans=args.debug_nans)
-    os.makedirs(args.out, exist_ok=True)
     out_pkl = os.path.join(args.out, f"airpose_plus_{args.split}.pkl")
-    with open(out_pkl, "wb") as f:
-        pickle.dump(result, f)
+    if is_main_rank():
+        os.makedirs(args.out, exist_ok=True)
+        with open(out_pkl, "wb") as f:
+            pickle.dump(result, f)
     return outputs, result, out_pkl
 
 
@@ -497,6 +638,8 @@ def main(argv=None):
 
     args = build_parser().parse_args(argv)
     outputs, result, out_pkl = optimize(args)
+    if not is_main_rank():
+        return
     # AirPose vs AirPose+ relative-camera trajectory
     n = result["cam1_wrt_cam0"].shape[0]
     trajs = {"AirPose": relative_camera_trajectory(outputs)[:n],

@@ -33,9 +33,10 @@ B, STEPS = 64, 5
 SPANS = ("stem", "front", "layer1", "tail", "int8_layers", "ief", "smplx", "project")
 # The port's own kernels launch through ctypes, not through an aten op, so
 # the profiler's tree does not place them under a span: attribute by name.
-# Both int8 trunks launch the int8 conv kernel only in their int8_layers span.
+# Both int8 trunks launch the int8 conv kernel only in their int8_layers span,
+# the int8 trunk its stem kernel only in its stem span.
 OWN_KERNELS = {"bottleneck_kernel": "layer1", "skinning_kernel": "smplx",
-               "int8_conv_kernel": "int8_layers"}
+               "int8_conv_kernel": "int8_layers", "stem_kernel": "stem"}
 
 
 def _span_kernels(span):

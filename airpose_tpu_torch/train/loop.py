@@ -15,6 +15,11 @@ generator (on the batch's device) draws the dropout masks, with
 ``cfg.smpltrans_noise_sigma`` the noise of the IEF translation init, and in
 the real losses the VPoser latent sample; eval_step draws that sample from
 a generator seeded 0, as the JAX package uses ``PRNGKey(0)``.
+With a ``mesh`` (parallel/mesh.py) the steps are data-parallel: each rank
+takes its rows of the batch (``parallel.shard_batch``), BatchNorm and the
+row-weighted means reduce over the data group, the gradients and metrics are
+averaged over it, and AMSGrad then runs on every rank alike. Without one (or
+at world size 1) a step is what it is in one process.
 The train step's parts run inside ``record_function`` spans (forward,
 backward, optimizer) that a profiler reads; without one a span costs a few
 microseconds of host time.
@@ -31,6 +36,7 @@ from ..bodymodel.smplx import SMPLXParams
 from ..bodymodel.vposer import VPoserParams
 from ..config import TrainConfig
 from ..geometry.rotations import rot6d_to_rotmat
+from ..parallel.mesh import all_reduce_mean, data_parallel
 from . import losses as L
 from .state import AMSGrad, TrainState
 
@@ -88,13 +94,13 @@ def _pinned_trans(batch: Batch, cfg: TrainConfig, generator=None) -> torch.Tenso
 
 def _step_fns(model: torch.nn.Module, cfg: TrainConfig, tx: AMSGrad, dev: torch.device,
               inputs, loss_from_out, predictions,
-              init_trans=(_input_trans, _eval_input_trans)):
+              init_trans=(_input_trans, _eval_input_trans), mesh=None):
     """(train_step, eval_step) of one family: ``inputs(batch, in_trans)``
     gives the model's positional arguments, ``loss_from_out(out, batch,
     generator)`` its loss and ``predictions(out)`` what eval_step returns
     beside the metrics; ``init_trans`` is the IEF translation init of the
     train step, ``(batch, cfg, generator)``, and of eval_step,
-    ``(batch, cfg)``."""
+    ``(batch, cfg)``; ``mesh`` makes both steps data-parallel."""
     train_trans, eval_trans = init_trans
 
     def forward(state: TrainState, batch: Batch, in_trans, train: bool, generator):
@@ -107,15 +113,22 @@ def _step_fns(model: torch.nn.Module, cfg: TrainConfig, tx: AMSGrad, dev: torch.
         if batch["images"].device.type != dev.type:
             raise ValueError(f"the batch is on {batch['images'].device}, the steps on {dev}")
 
+    def reduced(metrics):
+        return dict(zip(metrics, all_reduce_mean(list(metrics.values()), mesh)))
+
     def train_step(state: TrainState, batch: Batch, generator: torch.Generator):
         check_device(batch)
-        with record_function("forward"):
-            in_trans = train_trans(batch, cfg, generator)
-            out = forward(state, batch, in_trans, True, generator)
-            total, metrics = loss_from_out(out, batch, generator)
         names = list(state.opt_state["mu"])
-        with record_function("backward"):
-            grads = torch.autograd.grad(total, [state.params[n] for n in names])
+        with data_parallel(mesh):
+            with record_function("forward"):
+                in_trans = train_trans(batch, cfg, generator)
+                out = forward(state, batch, in_trans, True, generator)
+                total, metrics = loss_from_out(out, batch, generator)
+            with record_function("backward"):
+                grads = torch.autograd.grad(total, [state.params[n] for n in names])
+                if mesh is not None:
+                    grads = all_reduce_mean(grads, mesh)
+                    metrics = reduced({k: v.detach() for k, v in metrics.items()})
         with record_function("optimizer"):
             tx.update(dict(zip(names, grads)), state.opt_state, state.params)
         state.step += 1
@@ -124,15 +137,18 @@ def _step_fns(model: torch.nn.Module, cfg: TrainConfig, tx: AMSGrad, dev: torch.
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
         check_device(batch)
-        out = forward(state, batch, eval_trans(batch, cfg), False, None)
-        _, metrics = loss_from_out(out, batch, torch.Generator(device=dev).manual_seed(0))
+        with data_parallel(mesh):
+            out = forward(state, batch, eval_trans(batch, cfg), False, None)
+            _, metrics = loss_from_out(out, batch, torch.Generator(device=dev).manual_seed(0))
+        if mesh is not None:
+            metrics = reduced(metrics)
         return metrics, predictions(out)
 
     return train_step, eval_step
 
 
 def make_twoview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
-                          cfg: TrainConfig, tx: AMSGrad, loss=None, device=None):
+                          cfg: TrainConfig, tx: AMSGrad, loss=None, device=None, mesh=None):
     """(train_step, eval_step) for AirPoseTwoView or the per-drone
     AirPoseTwoViewSep (the same call). ``loss`` defaults to the
     SMPL-X-parameter-supervised ``twoview_loss``; ``joints_loss`` serves
@@ -154,7 +170,7 @@ def make_twoview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
         model, cfg, tx, dev, lambda batch, in_trans: (batch["images"], batch["bb"], in_trans),
         lambda out, batch, generator: loss(out.pose, out.betas, batch, smplx_params,
                                            cfg.loss, cfg.trans_scale),
-        predictions)
+        predictions, mesh=mesh)
 
 
 # each single-view family's forward arguments from the two-view batch layout
@@ -169,7 +185,7 @@ _SINGLEVIEW_INPUTS = {
 def make_singleview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
                              cfg: TrainConfig, tx: AMSGrad, family: str,
                              vertex_mask: Optional[torch.Tensor] = None,
-                             use_kernels: bool = True, device=None):
+                             use_kernels: bool = True, device=None, mesh=None):
     """(train_step, eval_step) for the single-view families ('hmr',
     'copenet_singleview') and 'muhmr' on the two-view batch layout: view 0
     where the family sees one view. ``vertex_mask`` (V,) restricts the
@@ -190,12 +206,12 @@ def make_singleview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
                   vertex_mask=vertex_mask, use_kernels=use_kernels)
 
     return _step_fns(model, cfg, tx, dev, _SINGLEVIEW_INPUTS[family], loss_from_out,
-                     lambda out: out)
+                     lambda out: out, mesh=mesh)
 
 
 def make_real_twoview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
                                vposer_params: VPoserParams, cfg: TrainConfig, tx: AMSGrad,
-                               use_kernels: bool = True, device=None):
+                               use_kernels: bool = True, device=None, mesh=None):
     """(train_step, eval_step) of the self-supervised fine-tune on real
     captures for AirPoseTwoView or AirPoseTwoViewSep: the IEF translation
     init pinned to [0, 0, 10], ``real_twoview_loss`` (2D keypoints and the
@@ -211,7 +227,8 @@ def make_real_twoview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams
 
     return _step_fns(model, cfg, tx, dev,
                      lambda batch, in_trans: (batch["images"], batch["bb"], in_trans),
-                     loss_from_out, lambda out: out, init_trans=(_pinned_trans, _pinned_trans))
+                     loss_from_out, lambda out: out, init_trans=(_pinned_trans, _pinned_trans),
+                     mesh=mesh)
 
 
 REAL_SINGLEVIEW_FAMILIES = ("hmr_camswap_difffl", "spin")
@@ -220,7 +237,7 @@ REAL_SINGLEVIEW_FAMILIES = ("hmr_camswap_difffl", "spin")
 def make_real_singleview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,
                                   vposer_params: VPoserParams, cfg: TrainConfig, tx: AMSGrad,
                                   family: str = "hmr_camswap_difffl",
-                                  use_kernels: bool = True, device=None):
+                                  use_kernels: bool = True, device=None, mesh=None):
     """(train_step, eval_step) of the real-data single-view fine-tune of the
     HMR model, for the 'hmr_camswap_difffl' variant (the real trainer's
     ``--model hmr``, which alternates the view from step to step) and the
@@ -239,7 +256,8 @@ def make_real_singleview_step_fns(model: torch.nn.Module, smplx_params: SMPLXPar
                                           use_kernels=use_kernels)
 
         return _step_fns(model, cfg, tx, dev, lambda batch, in_trans: (batch["images"][:, view],),
-                         loss_from_out, lambda out: out, init_trans=(_pinned_trans, _pinned_trans))
+                         loss_from_out, lambda out: out, init_trans=(_pinned_trans, _pinned_trans),
+                         mesh=mesh)
 
     steps = [view_steps(0), view_steps(1)]
 

@@ -19,6 +19,7 @@ from ..bodymodel.vposer import VPoserParams, vposer_encode, vposer_rsample
 from ..config import LossWeights, RealLossWeights
 from ..data.joints import SMPLX_TO_H36M17
 from ..geometry.rotations import rot6d_to_rotmat, rotmat_to_aa
+from ..parallel.mesh import active_group, all_reduce_sum
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -51,11 +52,19 @@ def _row_mean(t: torch.Tensor, rw: Optional[torch.Tensor]) -> torch.Tensor:
     """Batch mean of ``t`` (batch on the leading axis). With ``rw=None`` this
     is ``t.mean()``; with a (B,) row weight it is the weighted mean of the
     per-row means, so an eval batch padded to a static size with 1/0 weights
-    reports the loss of its valid rows only."""
+    reports the loss of its valid rows only. Under ``parallel.data_parallel``
+    the denominator is the global row-weight sum over the data group, and the
+    result this rank's weighted sum times the group's size over it: the
+    ranks' mean is the global batch's weighted mean (shards can hold
+    different weight sums, so local means would not average to it)."""
     if rw is None:
         return t.mean()
     m = t.reshape(t.shape[0], -1).mean(dim=1)
-    return (m * rw).sum() / rw.sum().clamp(min=1.0)
+    group = active_group()
+    if group is None:
+        return (m * rw).sum() / rw.sum().clamp(min=1.0)
+    world = torch.distributed.get_world_size(group)
+    return (m * rw).sum() * world / all_reduce_sum(rw.sum(), group).clamp(min=1.0)
 
 
 def _identity_roots(n: int, like: torch.Tensor) -> torch.Tensor:

@@ -31,9 +31,15 @@ Datapath forms:
                        copenet_twoview[_sep], or hmr alternating the view
                        from step to step
 
-Flags and defaults are the JAX trainer's. It differs from it in two
-places: ``--platform {cpu,cuda}`` (the card by default; raises without
-CUDA) and there is no device mesh (one card). Checkpoints are
+Flags and defaults are the JAX trainer's. It differs from it in
+``--platform {cpu,cuda}`` (the card by default; raises without CUDA) and in
+how it goes data-parallel: under ``torchrun --nproc-per-node N`` each rank
+(one card each with NCCL, or a CPU process with gloo) takes
+``batch_size / N`` rows of every batch (parallel/mesh.py), where the JAX
+trainer takes the largest device count that divides both batch sizes; a
+world size that does not divide them is refused. Only rank 0 writes logs,
+the summary grid and checkpoints, and every rank leaves with code 3
+together when --time_to_run expires. Checkpoints are
 ``best.ckpt``/``last.ckpt`` in the reference Lightning layout with
 auto-resume (train.checkpoint.CheckpointManager);
 deadline-based preemption exits with code 3 (--time_to_run, same scheduler
@@ -201,6 +207,18 @@ class _JsonlWriter:
         self._f.close()
 
 
+class _NullWriter:
+    """The writer of ranks other than 0."""
+
+    def add_scalar(self, *a, **k):
+        pass
+
+    add_image = add_scalar
+
+    def close(self):
+        pass
+
+
 def _make_writer(run_dir):
     """TensorBoard writer if its package is installed, else JSON-lines
     scalars."""
@@ -277,6 +295,9 @@ def main(argv=None):
             "--qat_act extends --qat with activation fake-quant; an "
             "activations-only configuration is undefined (pass --qat too)")
     dev = resolve_device(args.platform)
+    from ..parallel.launch import init_from_env
+
+    dev = init_from_env(dev) or dev
     anomaly = (torch.autograd.detect_anomaly() if args.debug_nans
                else contextlib.nullcontext())
     with anomaly:
@@ -288,15 +309,25 @@ def _train(args, dev: torch.device):
     from ..data import make_synthetic_dataset
     from ..data.pipeline import Prefetcher, finish_batch
     from ..models import MODEL_REGISTRY
+    from ..parallel.mesh import all_reduce_sum, make_mesh, shard_batch
     from . import losses
     from .checkpoint import CheckpointManager
-    from .elastic import DeadlineGuard
+    from .elastic import CHECKPOINT_EXIT_CODE, DeadlineGuard
     from .loop import make_singleview_step_fns, make_twoview_step_fns
     from .state import create_train_state
 
     cfg = make_config(args)
     run_dir = os.path.join(args.log_dir, args.name, f"version_{args.version}")
     os.makedirs(run_dir, exist_ok=True)
+
+    # ---- data parallel over the torchrun group, if there is one ----
+    mesh = make_mesh() if torch.distributed.is_initialized() else None
+    if mesh is not None and (cfg.batch_size % mesh.n_data or cfg.val_batch_size % mesh.n_data):
+        raise SystemExit(
+            f"{mesh.n_data} ranks do not divide --batch_size {cfg.batch_size} and "
+            f"--val_batch_size {cfg.val_batch_size}: each rank takes an equal share "
+            "of every batch")
+    main_rank = mesh is None or mesh.data_rank == 0
 
     # ---- body model ----
     genders_to_params = None
@@ -675,14 +706,14 @@ def _train(args, dev: torch.device):
                 vposer_params = init_vposer_params(0).to(dev)
             if cfg.model in ("copenet_twoview", "copenet_twoview_sep"):
                 train_step, eval_step = make_real_twoview_step_fns(
-                    model, smplx_params, vposer_params, cfg, tx, device=dev)
+                    model, smplx_params, vposer_params, cfg, tx, device=dev, mesh=mesh)
             elif cfg.model == "hmr":
                 # the real trainer's --model=hmr alias is the camera-swapped
                 # variant (ref copenet_real/copenet_trainer.py:32-38): the view
                 # alternates per step (the "camswap" training regime)
                 view_step, eval_step = make_real_singleview_step_fns(
                     model, smplx_params, vposer_params, cfg, tx, "hmr_camswap_difffl",
-                    device=dev)
+                    device=dev, mesh=mesh)
                 steps_taken = [0]
 
                 def train_step(state, batch, gen):
@@ -701,10 +732,11 @@ def _train(args, dev: torch.device):
                 # on the batch's source tag over ONE TrainState
                 # (single-source runs dispatch trivially)
                 by_kind = {"smpl": make_twoview_step_fns(
-                    model, smplx_params, cfg, tx, loss=smpl_loss, device=dev)}
+                    model, smplx_params, cfg, tx, loss=smpl_loss, device=dev, mesh=mesh)}
                 if "joints" in source_loss_kinds:
                     by_kind["joints"] = make_twoview_step_fns(
-                        model, smplx_params, cfg, tx, loss=losses.joints_loss, device=dev)
+                        model, smplx_params, cfg, tx, loss=losses.joints_loss, device=dev,
+                        mesh=mesh)
 
                 def _src(batch):
                     return int(np.asarray(batch.pop("mixed_source"))[0])
@@ -718,7 +750,7 @@ def _train(args, dev: torch.device):
                     return by_kind[kind][1](state, batch)
             else:  # synthetic:// supervised path (untagged batches)
                 train_step, eval_step = make_twoview_step_fns(
-                    model, smplx_params, cfg, tx, loss=smpl_loss, device=dev)
+                    model, smplx_params, cfg, tx, loss=smpl_loss, device=dev, mesh=mesh)
         elif sources is not None and "joints" in source_loss_kinds:
             raise SystemExit(
                 f"--model {cfg.model} has no joints-GT path "
@@ -726,8 +758,8 @@ def _train(args, dev: torch.device):
             )
         else:
             base_train, base_eval = make_singleview_step_fns(
-                model, smplx_params, cfg, tx, cfg.model, vertex_mask=vmask, device=dev
-            )
+                model, smplx_params, cfg, tx, cfg.model, vertex_mask=vmask, device=dev,
+                mesh=mesh)
             if sources is not None:  # on-disk batches carry the source tag
 
                 def train_step(state, batch, gen):
@@ -745,12 +777,29 @@ def _train(args, dev: torch.device):
         state = ckpts.auto_resume(state)
         start_step = state.step
 
-        # ---- logging ----
-        writer = _make_writer(run_dir)
+        # ---- logging (rank 0) ----
+        writer = _make_writer(run_dir) if main_rank else _NullWriter()
         guard = DeadlineGuard(args.time_to_run)
         # the step's draws (dropout, translation noise) replay from the seed
-        # on every start, resumed or not, as the JAX trainer's key does
-        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        # on every start, resumed or not, as the JAX trainer's key does; one
+        # generator a rank
+        rank = 0 if mesh is None else mesh.data_rank
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed + rank)
+
+        def save(name=None, val_loss=None):
+            """Rank 0 writes; the others wait until it has."""
+            if main_rank:
+                if val_loss is None:
+                    ckpts.save(state, name)
+                else:
+                    ckpts.save_with_val(state, val_loss)
+            if mesh is not None:
+                torch.distributed.barrier()
+
+        def expired():
+            """The deadline, agreed by every rank (any rank's clock)."""
+            flag = torch.tensor([float(guard.expired())], device=dev)
+            return bool(all_reduce_sum(flag, mesh.group) > 0) if mesh is not None else bool(flag)
 
         t_last = time.perf_counter()
         pending = [sample]
@@ -759,7 +808,7 @@ def _train(args, dev: torch.device):
             # the dispatch tag never rides to the device: the step
             # dispatcher pops it host-side every step
             tag = batch.pop("mixed_source", None)
-            batch = {k: v.to(dev) for k, v in batch.items()}
+            batch = shard_batch({k: v.to(dev) for k, v in batch.items()}, mesh)
             if tag is not None:
                 batch["mixed_source"] = np.asarray(tag)
             state, metrics = train_step(state, batch, gen)
@@ -782,8 +831,9 @@ def _train(args, dev: torch.device):
                 t_last = time.perf_counter()
                 for k, v in m.items():
                     writer.add_scalar(f"{k}/train", v, step)
-                print(f"step {step + 1} loss {m['loss']:.2f} ({dt:.2f}s/10 steps)",
-                      flush=True)
+                if main_rank:
+                    print(f"step {step + 1} loss {m['loss']:.2f} ({dt:.2f}s/10 steps)",
+                          flush=True)
 
             if (step + 1) % args.val_every == 0 or step + 1 == args.max_steps:
                 vals = []
@@ -793,14 +843,14 @@ def _train(args, dev: torch.device):
                     src = (int(np.asarray(vb["mixed_source"])[0])
                            if "mixed_source" in vb else None)
                     vtag = vb.pop("mixed_source", None)
-                    vb = {k: v.to(dev) for k, v in vb.items()}
+                    vb = shard_batch({k: v.to(dev) for k, v in vb.items()}, mesh)
                     if vtag is not None:
                         vb["mixed_source"] = np.asarray(vtag)
                     vm, preds = eval_step(state, vb)
                     vals.append({k: float(v) for k, v in vm.items()})
                     if src is not None:
                         vals_by_src.setdefault(src, []).append(vals[-1])
-                    if not summary_done and cfg.model in (
+                    if main_rank and not summary_done and cfg.model in (
                         "copenet_twoview", "copenet_twoview_sep"
                     ):
                         # rendered per-view [input | pred] grid summary (the
@@ -845,16 +895,20 @@ def _train(args, dev: torch.device):
                         f"{_sname(s)} "
                         f"{np.mean([v['loss'] for v in lst]):.2f}"
                         for s, lst in sorted(vals_by_src.items())) + ")"
-                print(f"step {step + 1} val_loss {mean_val['loss']:.2f}"
-                      f"{per_src}", flush=True)
-                ckpts.save_with_val(state, mean_val["loss"])
+                if main_rank:
+                    print(f"step {step + 1} val_loss {mean_val['loss']:.2f}"
+                          f"{per_src}", flush=True)
+                save(val_loss=mean_val["loss"])
 
-            if guard.expired():
-                print("time_to_run exceeded: checkpoint + exit 3", flush=True)
-                guard.checkpoint_and_exit(ckpts, state)
+            if expired():
+                if main_rank:
+                    print("time_to_run exceeded: checkpoint + exit 3", flush=True)
+                save("last")
+                raise SystemExit(CHECKPOINT_EXIT_CODE)
 
-        ckpts.save(state, "last")
-        print("training done", flush=True)
+        save("last")
+        if main_rank:
+            print("training done", flush=True)
     finally:
         # Close the writer on EVERY exit (exceptions, the DeadlineGuard's
         # SystemExit) so buffered TensorBoard events are flushed, not just

@@ -20,7 +20,11 @@ Phases, each of which exits non-zero on failure:
      and bf16 + int8, among them) at layer1's 3×3 (128, 56, 56, 64) and
      layer2_0's 3×3/2 (128, 56, 56, 128); then the 52 convs of the int8
      trunk at 128 crops, as the trunk makes them, replayed through the
-     kernel, the plain version and torch._int_mm;
+     kernel, the plain version and torch._int_mm; the int8 trunk's stem
+     kernel (csrc/int8_stem.cu) at 1, 60 and 128 crops of 224²: bit for bit
+     its fixed-order arithmetic in torch ops, within one bf16 step of its
+     plain version (cuDNN) on at most STEM_STEP_SHARE of the map, timed
+     beside cuDNN's convolution;
   6. the 13 int8 blocks of layers 2-4 chained at 128 crops of 224²: each
      within 1 int8 step on < 0.5% of elements of its plain version, with
      kernel, plain, torch._int_mm and bound times;
@@ -162,9 +166,22 @@ Phases, each of which exits non-zero on failure:
      and a held-out one, 2 + 2 steps, its five arms finite under the
      deployed int8 trunk (the int8 conv kernel), launches as the code gives
      them; (e) calibration and prepare_real_capture on generated chessboard
-     and ArUco frames (to_hdf5 only where h5py is); and the int8 trunk's
-     bf16 stem on one crop alone and as the first of 60, with cuDNN's
-     deterministic mode off and on.
+     and ArUco frames (to_hdf5 only where h5py is); and a gate on the int8
+     trunk's stem kernel: crop 0's stem map and int8 features bit-equal
+     alone and as the first of 60 crops, and each of the 60 crops' features
+     alone equal to the 60-crop folded batch's (cuDNN's stem logged beside).
+ 15. multi-device at world size 1, in process, in phase 10's temporary
+     directory: entry.dryrun_multichip(1) (its own NCCL group of one: one
+     two-view train step, then the frame-sharded AirPose+); on an NCCL group
+     of one, parallel.global_batch_norm against the local BatchNorm
+     (forward, input gradient, running statistics), one data-parallel train
+     step (bf16, B = 30 of 224²) against the one-process step,
+     compile_results --mesh 1 --int8 --save-full on phase 12's AerialPeople
+     records with phase 10's last.ckpt against the CLI without --mesh, and
+     bundle_adjust_sharded over 2,000 frames against bundle_adjust; then
+     utils.cluster's local backend requeueing a 2-step trainer job through
+     one exit 3, and parity_run on a fixture bundle made from phase 10's
+     last.ckpt; each sub-phase's kernel launches counted.
 Prints the kernels as one JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA device is available.
@@ -206,6 +223,19 @@ CHAIN_REL_L2 = 5e-2
 # exact), so their chains differ only in skinning's f32 summation order:
 # measured rel-L2 4.8e-8 (verts) and 4e-9 (j2d) on the H100.
 INT8_CHAIN_REL_L2 = 1e-5
+# The stem kernel against its plain version (cuDNN's bf16 convolution): both
+# sum 147 exact products in f32 in other orders and round once, so an output
+# can lie one bf16 step apart (of the larger value; 1e-6 more where a sum
+# cancels towards 0). On the CPU, XLA's and torch's stems differ so on
+# 3.7e-5 to 7.0e-5 of the map (tests/test_torch_int8.py); bound: at most
+# 1e-3 of the elements.
+STEM_STEP_SHARE = 1e-3
+STEM_CROPS = (1, 60, 128)
+# global_batch_norm (f64 statistics, f32 normalisation) against torch's
+# BatchNorm kernels (f32 statistics) on a bf16 map: the bf16 output rounds at
+# most one step (2^-8 relative) apart where the two f32 values straddle a
+# rounding boundary; bound on rel-L2 of y and dx and on the running stats.
+GLOBAL_BN_REL = 1e-2   # a served step 1, compile_results --int8 at B = 30, the chain
 # int8 block outputs: the JAX package's bound for its Pallas block
 # (tests/test_int8_bottleneck.py): ≤ 1 step on < 0.5% of elements.
 BLOCK_MAX_STEP, BLOCK_FRAC = 1.0, 5e-3
@@ -229,8 +259,12 @@ SKIN_GRAD_REL = 1e-5
 # from the plain step's by 2.08e-2 in every call: skinning's ~1e-7
 # differences flip roundings of the bf16 backward, each a 2^-8 relative
 # step, which the trunk amplifies; bound 5e-2, 2.4 times the measurement.
+# The bf16 step's trunk gradients against the f32 step's on the same weights,
+# batch and dropout masks measure bf16's own error in that backward; the
+# kernel step's trunk gradients must lie closer than that to the plain
+# step's (the bound of the "trunk" entry, taken in the run itself).
 TRAIN_F32_BOUNDS = {"loss": 1e-6, "regressor": 1e-6, "trunk": 1e-3}
-TRAIN_BF16_BOUNDS = {"loss": 1e-6, "regressor": 1e-6, "trunk": 5e-2}
+TRAIN_BF16_BOUNDS = {"loss": 1e-6, "regressor": 1e-6}
 TRAIN_STEPS = 25
 # Phase 9. Kernel step against plain step per family, on the bf16 trunk.
 # Measured on the H100: each family's bf16 step equals itself bit for bit;
@@ -668,6 +702,64 @@ def phase_int8_conv(dev, qparams, act_scales, crops):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
+
+def stem_at(w, x):
+    """The stem kernel at one batch against its plain version (cuDNN's bf16
+    convolution, within one bf16 step on at most STEM_STEP_SHARE of the
+    map) and its own arithmetic in torch ops (bit for bit), then the kernel,
+    the plain version, cuDNN's convolution alone and the bound."""
+    from torch.nn import functional as F
+
+    from airpose_tpu_torch.ops import int8_stem as st
+
+    n = x.shape[0]
+    got = st.stem_conv_cuda(x, w)
+    want = st.stem_conv_reference(x, w)
+    torch.cuda.synchronize()
+    exact = torch.equal(got, st.stem_conv_ordered(x, w))
+    g, r = got.float(), want.float()
+    diff = (g - r).abs()
+    within = bool((diff <= torch.maximum(g.abs(), r.abs()) * 2.0 ** -7 + 1e-6).all())
+    share = (g != r).float().mean().item()
+    err = diff.max().item()
+    log(f"int8 stem at {n} crops: kernel vs its fixed-order torch ops bit for bit {exact}; vs "
+        f"the plain (cuDNN) conv max_abs_err {err:.3e}, within one bf16 step {within}, on "
+        f"{share:.3e} of the map (bound {STEM_STEP_SHARE})")
+    check(exact, f"the stem kernel differs from its fixed-order arithmetic at {n} crops")
+    check(within and share <= STEM_STEP_SHARE,
+          f"the stem kernel disagrees with its plain version at {n} crops: {err}, {share}")
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+    ms = time_ms(lambda: st.stem_conv_cuda(x, w), iters=50, warmup=5)
+    plain_ms = time_ms(lambda: st.stem_conv_reference(x, w), iters=50, warmup=5)
+    library_ms = time_ms(lambda: F.conv2d(xb, w, stride=2, padding=3), iters=50, warmup=5)
+    flops, n_bytes = st.stem_cost(x)
+    bound_ms, bound_by = bound(n_bytes, flops, BF16_FLOP_PER_S)
+    fma_ms = flops / F32_FLOP_PER_S * 1e3
+    log(f"int8 stem at {n} crops: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms (the bf16 cast and cuDNN), library {library_ms:.4f} ms (cuDNN's "
+        f"conv alone), bound {bound_ms:.4f} ms ({bound_by}; the f32 FMA floor of this design "
+        f"{fma_ms:.4f} ms), kernel at {bound_ms / ms:.1%} of its bound")
+    return {"max_abs_err": err, "differing_share": share, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "f32_fma_floor_ms": fma_ms}
+
+
+def phase_stem(dev, qparams, crops):
+    """The int8 trunk's stem kernel at 1, 60 and 128 crops of 224² (the
+    chain's), on the main path's folded stem weight and crops."""
+    from airpose_tpu_torch.ops import _build
+
+    ptxas = ptxas_lines(_build.build_log.get("int8_stem", ""), "stem_kernel")
+    log(f"int8 stem kernel ptxas: {' | '.join(ptxas) or 'not built in this process'}")
+    w = qparams["stem"]["w"]
+    rows = {n: stem_at(w, crops[:n]) for n in STEM_CROPS}
+    row = rows[crops.shape[0]]
+    row.update({f"at_{n}_crops": rows[n] for n in STEM_CROPS if n != crops.shape[0]})
+    return {"name": "int8_stem", "route": "cuda", "source": "airpose_tpu_torch/csrc/int8_stem.cu",
+            "replaces": "airpose_tpu/ops/int8_trunk.py:175 (the int8 trunk's stem, an XLA "
+                        "conv)"} | row
+
+
 def phase_int8_blocks(dev, model, blocks, crops):
     """The 13 int8 blocks of layers 2-4 chained at 128 crops: each against
     its plain version on the same input, then the chain's times."""
@@ -730,6 +822,7 @@ def phase_int8_chains(dev, model, smplx_params, chains, inputs, bf16_features):
     from airpose_tpu_torch.bodymodel import cuda_lbs
     from airpose_tpu_torch.ops import int8_bottleneck as ib
     from airpose_tpu_torch.ops import int8_conv as ic
+    from airpose_tpu_torch.ops import int8_stem as st
     from airpose_tpu_torch.ops import int8_trunk as it
     from airpose_tpu_torch.perception import perceive
 
@@ -739,17 +832,21 @@ def phase_int8_chains(dev, model, smplx_params, chains, inputs, bf16_features):
         xf_bf16 = bf16_features(crops)
     launches, fps = {}, {}
     for name, features, n_conv, n_block, n_quant in chains:
-        cuda_lbs.launches = ic.launches = ib.launches = it.quantize_calls = 0
+        cuda_lbs.launches = ic.launches = ib.launches = it.quantize_calls = st.launches = 0
         verts, j2d = perceive(model, smplx_params, *inputs, features)
         torch.cuda.synchronize()
         n = {"int8_conv": ic.launches, "int8_block calls": ib.launches,
-             "lbs_skinning": cuda_lbs.launches, "torch quantize calls": it.quantize_calls}
+             "lbs_skinning": cuda_lbs.launches, "torch quantize calls": it.quantize_calls,
+             "int8_stem": st.launches}
         log(f"{name} chain: launches {n}")
+        # the int8 trunk's stem is the stem kernel (one launch a trunk call);
+        # the int8-block chain runs the bf16 trunk's own stem and layer1
+        n_stem = n_conv // 52
         check(n == {"int8_conv": n_conv, "int8_block calls": n_block, "lbs_skinning": 1,
-                    "torch quantize calls": n_quant},
+                    "torch quantize calls": n_quant, "int8_stem": n_stem},
               f"the {name} path launched {n}, expected {n_conv} int8 conv launches, "
-              f"{n_block} int8_block calls, 1 skinning launch and {n_quant} torch "
-              "quantize calls")
+              f"{n_block} int8_block calls, 1 skinning launch, {n_quant} torch "
+              f"quantize calls and {n_stem} stem launches")
         launches[name] = n
         check(tuple(verts.shape) == (B, 2, 10475, 3) and tuple(j2d.shape) == (B, 2, 127, 2),
               f"{name} chain output shapes {tuple(verts.shape)}, {tuple(j2d.shape)}")
@@ -836,13 +933,14 @@ def grad_agreement(a, b):
             "regressor": rel_l2("core"), "trunk": rel_l2("trunk")}
 
 
-def kernel_vs_plain_step(model, make_steps, cfg, batch, bounds, what):
+def kernel_vs_plain_step(model, make_steps, cfg, batch, bounds, what, keep_step=False):
     """One train step's loss and gradients with the skinning kernel against
     the same step with the plain version, each driven through the step
     factory (``make_steps(tx, use_kernels)`` → (train_step, eval_step))
     with GradProbe for its optimizer, from the same weights and generator
     seed (so the same dropout masks); the kernel step against itself gives
-    the floor of the comparison."""
+    the floor of the comparison. ``keep_step`` returns the kernel step's
+    (loss, gradients) too, as ``kernel_step``."""
     from airpose_tpu_torch.train import create_train_state
 
     state, _ = create_train_state(model, cfg.lr)
@@ -865,7 +963,7 @@ def kernel_vs_plain_step(model, make_steps, cfg, batch, bounds, what):
         f"kernel vs itself {floor}")
     check(all(plain[k] <= bounds[k] for k in bounds),
           f"the kernel's {what} train step disagrees with the plain step: {plain}")
-    return {"vs_plain": plain, "vs_itself": floor}
+    return {"vs_plain": plain, "vs_itself": floor} | ({"kernel_step": first} if keep_step else {})
 
 
 def twoview_steps(model, smplx_params, cfg):
@@ -935,11 +1033,25 @@ def phase_train(dev):
 
     f32_model = AirPoseTwoView(seed=0).to(dev)
     agree = {"f32": kernel_vs_plain_step(f32_model, twoview_steps(f32_model, smplx_params, cfg),
-                                         cfg, batch, TRAIN_F32_BOUNDS, "f32 trunk")}
+                                         cfg, batch, TRAIN_F32_BOUNDS, "f32 trunk",
+                                         keep_step=True)}
     del f32_model
     model = AirPoseTwoView(dtype=torch.bfloat16, seed=0).to(dev)
     agree["bf16"] = kernel_vs_plain_step(model, twoview_steps(model, smplx_params, cfg), cfg,
-                                         batch, TRAIN_BF16_BOUNDS, "bf16 trunk")
+                                         batch, TRAIN_BF16_BOUNDS, "bf16 trunk", keep_step=True)
+    # bf16's own error in the step: the bf16 step against the f32 step on the
+    # same seed-0 weights, batch and dropout masks (both with the kernel)
+    f32_step = agree["f32"].pop("kernel_step")
+    bf16_vs_f32 = grad_agreement(agree["bf16"].pop("kernel_step"), f32_step)
+    agree["bf16"]["bf16_vs_f32_step"] = bf16_vs_f32
+    del f32_step
+    log(f"train step: the bf16 step vs the f32 step {bf16_vs_f32}; the bf16 kernel step's "
+        f"trunk gradients vs the plain step's {agree['bf16']['vs_plain']['trunk']:.3e} must "
+        "lie inside that gap")
+    check(agree["bf16"]["vs_plain"]["trunk"] < bf16_vs_f32["trunk"],
+          f"the bf16 kernel step's trunk gradients differ from the plain step's by "
+          f"{agree['bf16']['vs_plain']['trunk']}, more than bf16 differs from f32 "
+          f"({bf16_vs_f32['trunk']})")
 
     state, tx = create_train_state(model, cfg.lr)
     train_step, eval_step = make_twoview_step_fns(model, smplx_params, cfg, tx)
@@ -1093,6 +1205,7 @@ def phase_sep_serving(dev, batch):
     from airpose_tpu_torch import constants as C
     from airpose_tpu_torch.models import AirPoseTwoViewSep, AirPoseTwoViewSepView, mean_init_state
     from airpose_tpu_torch.ops import int8_conv as ic
+    from airpose_tpu_torch.ops import int8_stem as st
     from airpose_tpu_torch.ops import int8_trunk as it
 
     images, bb = batch["images"], batch["bb"]
@@ -1100,14 +1213,15 @@ def phase_sep_serving(dev, batch):
     pos = torch.full_like(bb, 10.0 * C.TRANS_SCALE)
     model = AirPoseTwoViewSep(dtype=torch.bfloat16, seed=0).to(dev)
     shim = it.Int8Inference(model, images[0])
-    ic.launches = it.quantize_calls = 0
+    ic.launches = it.quantize_calls = st.launches = 0
     out = shim.apply(images, bb, pos)
     torch.cuda.synchronize()
-    n = {"int8_conv": ic.launches, "torch quantize calls": it.quantize_calls}
+    n = {"int8_conv": ic.launches, "torch quantize calls": it.quantize_calls,
+         "int8_stem": st.launches}
     log(f"_sep int8 inference at B={B}: launches {n}")
-    check(n == {"int8_conv": 104, "torch quantize calls": 2},
-          f"_sep int8 inference launched {n}, expected 104 int8 conv launches and 2 torch "
-          "quantize calls")
+    check(n == {"int8_conv": 104, "torch quantize calls": 2, "int8_stem": 2},
+          f"_sep int8 inference launched {n}, expected 104 int8 conv launches, 2 torch "
+          "quantize calls and 2 stem launches")
     check(bool(torch.isfinite(out.pose).all() and torch.isfinite(out.betas).all()),
           "non-finite _sep int8 output")
     xf = shim._features(images)
@@ -1193,17 +1307,19 @@ def kernel_counts():
     from airpose_tpu_torch.bodymodel import cuda_lbs
     from airpose_tpu_torch.ops import fused_bottleneck as fb
     from airpose_tpu_torch.ops import int8_conv as ic
+    from airpose_tpu_torch.ops import int8_stem as st
 
     return {"lbs_skinning": cuda_lbs.launches, "fused_stage1": fb.launches,
-            "int8_conv": ic.launches}
+            "int8_conv": ic.launches, "int8_stem": st.launches}
 
 
 def reset_kernel_counts():
     from airpose_tpu_torch.bodymodel import cuda_lbs
     from airpose_tpu_torch.ops import fused_bottleneck as fb
     from airpose_tpu_torch.ops import int8_conv as ic
+    from airpose_tpu_torch.ops import int8_stem as st
 
-    cuda_lbs.launches = fb.launches = ic.launches = 0
+    cuda_lbs.launches = fb.launches = ic.launches = st.launches = 0
 
 
 class CliRun:
@@ -1331,7 +1447,8 @@ def phase_cli(dev, tmp, card, phase8_step_ms):
             * (CLI_STEPS // CLI_VAL_EVERY))
     check(bodies == want, f"CLI skinning launches by bodies {bodies}, expected {want} "
           "(dataset; 60 a train step; the val batch; the summary grid)")
-    check(counts == {"lbs_skinning": len(want), "fused_stage1": 0, "int8_conv": 0},
+    check(counts == {"lbs_skinning": len(want), "fused_stage1": 0, "int8_conv": 0,
+                     "int8_stem": 0},
           f"CLI kernel launches {counts}")
     files = sorted(os.listdir(ckpt_dir))
     check(files == ["best.ckpt", "best_val.json", "last.ckpt"], f"checkpoints {files}")
@@ -1602,7 +1719,8 @@ def phase_readers(dev, tmp, smplx_params, card):
     log(f"precompute_canonical_gt, {n} bodies in chunks of 256: {secs:.2f} s (pkl reads "
         f"included), launches {counts}; kernel vs plain skinning, max relative {rel} "
         f"(bound {CANON_REL}) [{card}]")
-    check(counts == {"lbs_skinning": chunks, "fused_stage1": 0, "int8_conv": 0},
+    check(counts == {"lbs_skinning": chunks, "fused_stage1": 0, "int8_conv": 0,
+                     "int8_stem": 0},
           f"precompute launches {counts}, expected {chunks} skinning")
     check(all(r <= CANON_REL for r in rel.values()), f"canonical GT with the kernel: {rel}")
 
@@ -1925,7 +2043,8 @@ def phase_real_cli(tmp, root, card, phase8_step_ms, pretrained):
     check(cli.calls == {"train": REAL_STEPS, "val": 1, "grid": 1}, f"real CLI calls {cli.calls}")
     check(per_call == {"train": 1, "val": 1, "grid": 1, "set-up": 0}
           and "other" not in cli.where, f"real CLI skinning launches a call {per_call}")
-    check(counts == {"lbs_skinning": len(want), "fused_stage1": 0, "int8_conv": 0},
+    check(counts == {"lbs_skinning": len(want), "fused_stage1": 0, "int8_conv": 0,
+                     "int8_stem": 0},
           f"real CLI kernel launches {counts}")
     check(not skipped, f"real CLI summary grid not rendered: {skipped}")
     files = sorted(os.listdir(os.path.join(logs, "real", "version_0", "checkpoints")))
@@ -2134,8 +2253,10 @@ def phase_eval_passes(dev, tmp, card):
             f"{EVAL_BODY_REL}), metrics {rel_metric:.3e} (bound {EVAL_METRIC_REL}) [{card}]")
         check(rows == frames, f"{name}: {rows} rows, expected {frames}")
         check(bodies == want_bodies, f"{name}: skinned {bodies}, expected {want_bodies}")
+        # one stem launch a trunk call, beside its 52 int8 convs
         check(counts == {"lbs_skinning": len(want_bodies), "fused_stage1": 0,
-                         "int8_conv": want_int8}, f"{name}: launches {counts}")
+                         "int8_conv": want_int8, "int8_stem": want_int8 // 52},
+              f"{name}: launches {counts}")
         check(all(np.isfinite(v) for v in metrics.values())
               and all(np.isfinite(a).all() for o in outputs for a in o["output"].values()),
               f"{name}: non-finite outputs or metrics {metrics}")
@@ -2144,6 +2265,7 @@ def phase_eval_passes(dev, tmp, card):
         out[name] = {"seconds": secs, "frames_per_s": frames / secs, "source_s": source_s[0],
                      "metrics": metrics,
                      "skinning_launches": len(bodies), "int8_conv_launches": counts["int8_conv"],
+                     "int8_stem_launches": counts["int8_stem"],
                      "body_rel": rel_body, "metric_rel": rel_metric}
 
     # the int8 pass's trunk against the plain int8 trunk on its first batch
@@ -2454,8 +2576,10 @@ def serving_staged(dev, model, u8, bb):
     launches = kernel_counts()
     want = (2 * n + 2) * 52  # 52 a step-1 call, and calibration's and the clip report's
     log(f"staged int8 ({n} frames × 2 views): launches {launches}, expected int8_conv {want}")
-    check(launches == {"lbs_skinning": 0, "fused_stage1": 0, "int8_conv": want},
-          f"staged int8 launches {launches}, expected {want} int8 conv launches only")
+    check(launches == {"lbs_skinning": 0, "fused_stage1": 0, "int8_conv": want,
+                       "int8_stem": want // 52},
+          f"staged int8 launches {launches}, expected {want} int8 conv launches and "
+          f"{want // 52} stem launches only")
     # the fused forward: Int8Inference's trunk at the served shape (1 crop a
     # call; cuDNN's bf16 stem rounds differently at other batch sizes, and
     # the int8 quantization carries that on), then the fused 3-step IEF
@@ -2731,9 +2855,11 @@ def phase_serving(dev, tmp, card):
               for v, m in enumerate(("m1", "m2"))),
           f"--int8 served pose beyond {SERVED_INT8_RMS} × rms {pose_rms}: {served['int8']}")
     want = 2 * (len(u8) + 2) * 52  # two servers: 52 a frame, calibration and clip report once
-    check(served["f32"]["launches"] == {"lbs_skinning": 0, "fused_stage1": 0, "int8_conv": 0},
+    check(served["f32"]["launches"] == {"lbs_skinning": 0, "fused_stage1": 0, "int8_conv": 0,
+                                        "int8_stem": 0},
           f"f32 serving launched kernels: {served['f32']['launches']}")
-    check(served["int8"]["launches"] == {"lbs_skinning": 0, "fused_stage1": 0, "int8_conv": want},
+    check(served["int8"]["launches"] == {"lbs_skinning": 0, "fused_stage1": 0, "int8_conv": want,
+                                         "int8_stem": want // 52},
           f"--int8 serving launches {served['int8']['launches']}, expected {want} int8 conv")
     log(f"--int8 served pose rms of the f32 forward {pose_rms.tolist()}; int8 conv launches "
         f"{want} = 2 servers × ({len(u8)} frames + calibration + clip report) × 52")
@@ -2777,7 +2903,8 @@ def phase_serving(dev, tmp, card):
     viz.main(["--wire", npy, "--out", viz_dir, "--max-frames", str(VIZ_FRAMES)])
     torch.cuda.synchronize()
     launches = kernel_counts()
-    check(launches == {"lbs_skinning": VIZ_FRAMES, "fused_stage1": 0, "int8_conv": 0},
+    check(launches == {"lbs_skinning": VIZ_FRAMES, "fused_stage1": 0, "int8_conv": 0,
+                       "int8_stem": 0},
           f"viz launches {launches}, expected {VIZ_FRAMES} skinning launches")
     pngs = sorted(os.listdir(viz_dir))
     check(len(pngs) == VIZ_FRAMES, f"viz wrote {pngs}")
@@ -2927,8 +3054,8 @@ def stage_marks(stamped, t0):
             last[line.split(" ", 1)[0]] = (t, counts)
     out, prev_t, prev_c = {}, t0, {k: 0 for k in kernel_counts()}
     for tag, (t, counts) in sorted(last.items(), key=lambda kv: kv[1][0]):
-        out[tag] = {"s": t - prev_t, "lbs_skinning": counts["lbs_skinning"] - prev_c["lbs_skinning"],
-                    "int8_conv": counts["int8_conv"] - prev_c["int8_conv"]}
+        out[tag] = {"s": t - prev_t, **{k: counts[k] - prev_c[k]
+                                        for k in ("lbs_skinning", "int8_conv", "int8_stem")}}
         prev_t, prev_c = t, counts
     return out
 
@@ -3071,9 +3198,10 @@ def phase_rehearsal(root, card):
     for tag, (skin, i8) in predicted.items():
         check(tag in stages, f"rehearsal: no {tag} line")
         got = stages[tag]
-        check((got["lbs_skinning"], got["int8_conv"]) == (skin, i8),
-              f"rehearsal {tag}: {got['lbs_skinning']} skinning and {got['int8_conv']} int8 "
-              f"conv launches, predicted {skin} and {i8}")
+        check((got["lbs_skinning"], got["int8_conv"], got["int8_stem"]) == (skin, i8, i8 // 52),
+              f"rehearsal {tag}: {got['lbs_skinning']} skinning, {got['int8_conv']} int8 "
+              f"conv and {got['int8_stem']} stem launches, predicted {skin}, {i8} and "
+              f"{i8 // 52}")
     check(summary["converter_roundtrip_max_err"] == 0.0, "rehearsal: round trip not equal")
     check(summary["benchtest_absdiff_pose_m1"] < 1e-3, "rehearsal: served pose diff")
     # the card machine has cmake: stage 9b must build the native client and run
@@ -3209,7 +3337,8 @@ def phase_qat_posture(card):
     # calibration (one dynamic trunk call) and four deployed arms: 52 convs each;
     # skinning once for the synthetic dataset's GT, once a train step, once in
     # the eval step and once a deployed loss
-    want = {"int8_conv": 52 * (1 + 4), "lbs_skinning": 1 + pre + 3 * ft + 1 + 4}
+    want = {"int8_conv": 52 * (1 + 4), "int8_stem": 1 + 4,
+            "lbs_skinning": 1 + pre + 3 * ft + 1 + 4}
     check(all(np.isfinite(v) for v in results.values()) and len(results) == 5,
           f"qat_posture arms {results}")
     for k, v in want.items():
@@ -3271,31 +3400,38 @@ def phase_prepare(root, card):
 
 
 def phase_stem_batch(dev, card):
-    """The int8 trunk's bf16 stem (ops/int8_trunk.int8_stem) on one crop
-    alone and as the first of 60, with cuDNN's deterministic mode off and
-    on: is the crop's map the same?"""
+    """A gate: the int8 trunk's stem (ops/int8_trunk.int8_stem, the stem
+    kernel) on one crop alone and as the first of 60 gives crop 0 the same
+    map, and the int8 trunk the same features; and each of the 60 crops
+    alone gets the features it gets in the 60-crop folded batch. cuDNN's
+    bf16 stem (the plain version) at the same two sizes is logged beside it."""
     from airpose_tpu_torch.models import AirPoseTwoView
+    from airpose_tpu_torch.ops import int8_stem as st
     from airpose_tpu_torch.ops import int8_trunk
 
     qp = int8_trunk.quantize_trunk_params(AirPoseTwoView(seed=0).to(dev).trunk.state_dict())
     crops = torch.randn(60, 224, 224, 3, generator=torch.Generator().manual_seed(3)).to(dev)
-    out = {}
-    flag = torch.backends.cudnn.deterministic
-    try:
-        for det in (False, True):
-            torch.backends.cudnn.deterministic = det
-            with torch.no_grad():
-                one = int8_trunk.int8_stem(qp["stem"], crops[:1])[0].float()
-                many = int8_trunk.int8_stem(qp["stem"], crops)[0].float()
-                feats = [int8_trunk.resnet50_int8_infer(qp, x, int8_trunk.calibrate_act_scales(
-                    qp, crops[:2]))[0] for x in (crops[:1], crops)]
-            out[f"deterministic={det}"] = {
-                "stem_max_diff": float((one - many).abs().max()),
-                "stem_differing_share": float((one != many).float().mean()),
-                "int8_features_max_diff": float((feats[0] - feats[1]).abs().max())}
-    finally:
-        torch.backends.cudnn.deterministic = flag
-    log(f"14 int8 stem at B = 1 vs B = 60 (crop 0): {out} [{card}]")
+    scales = int8_trunk.calibrate_act_scales(qp, crops[:2])
+    with torch.no_grad():
+        one = int8_trunk.int8_stem(qp["stem"], crops[:1])[0]
+        many = int8_trunk.int8_stem(qp["stem"], crops)[0]
+        cudnn = [st.stem_conv_reference(x, qp["stem"]["w"])[0].float() for x in (crops[:1], crops)]
+        folded = int8_trunk.resnet50_int8_infer(qp, crops, scales)
+        alone = torch.cat([int8_trunk.resnet50_int8_infer(qp, crops[i:i + 1], scales)
+                           for i in range(60)])
+    out = {"stem_equal": torch.equal(one, many),
+           "int8_features_equal": torch.equal(alone[0], folded[0]),
+           "folded_batch_equal_alone": torch.equal(alone, folded),
+           "folded_max_abs_diff": (alone - folded).abs().max().item(),
+           "cudnn_stem_max_diff": (cudnn[0] - cudnn[1]).abs().max().item(),
+           "cudnn_stem_differing_share": (cudnn[0] != cudnn[1]).float().mean().item()}
+    log(f"14 int8 stem at B = 1 vs B = 60 (crop 0) and each of 60 crops alone vs folded: {out} "
+        f"[{card}]")
+    check(out["stem_equal"], "the int8 stem's map of crop 0 differs between B = 1 and B = 60")
+    check(out["int8_features_equal"], "crop 0's int8 features differ between B = 1 and 60")
+    check(out["folded_batch_equal_alone"],
+          f"the 60-crop folded batch's int8 features differ from each crop's alone by "
+          f"{out['folded_max_abs_diff']}")
     return out
 
 
@@ -3313,6 +3449,302 @@ def phase_tools(dev, card, phase8_step_ms):
             out[name] = fn()
             out[name + "_s"] = time.perf_counter() - t
             torch.cuda.empty_cache()
+    return out
+
+
+
+# ---- phase 15: multi-device at world size 1 on NCCL -------------------------------------
+
+CLUSTER_JOB = """import os
+
+
+def train_job(argv, ckpt, runs):
+    \"\"\"A trainer job that checkpoints and exits 3 on its first run (no
+    checkpoint yet: --time_to_run 0) and finishes on its requeued run; ->
+    the kernel launches of the run that finished.\"\"\"
+    from airpose_tpu_torch.bodymodel import cuda_lbs
+    from airpose_tpu_torch.ops import int8_conv, int8_stem
+    from airpose_tpu_torch.train import trainer
+
+    with open(runs, "a") as f:
+        f.write("run\\n")
+    trainer.main(argv + ([] if os.path.exists(ckpt) else ["--time_to_run", "0"]))
+    return {"lbs_skinning": cuda_lbs.launches, "int8_conv": int8_conv.launches,
+            "int8_stem": int8_stem.launches}
+"""
+
+
+def params_diff(a, b):
+    """(tensors not bit-equal, max |difference|) over two name → tensor dicts."""
+    unequal = [k for k in a if not torch.equal(a[k], b[k])]
+    return len(unequal), max([(a[k].float() - b[k].float()).abs().max().item()
+                              for k in unequal] or [0.0])
+
+
+def phase15_global_bn(dev):
+    """parallel.global_batch_norm over the NCCL group of one against the
+    port's own BatchNorm (torch's kernels), forward and input gradient, on a
+    bf16 NCHW map of layer1's shape: the same arithmetic in other orders."""
+    import torch.distributed as dist
+
+    from airpose_tpu_torch.models.resnet import BatchNorm2d
+    from airpose_tpu_torch.parallel import global_batch_norm
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = (torch.randn(60, 256, 56, 56, device=dev, generator=g) * 2 + 0.5).to(
+        torch.bfloat16).to(memory_format=torch.channels_last)
+    up = torch.randn(x.shape, device=dev, generator=g).to(torch.bfloat16)
+    bn = BatchNorm2d(256).to(dev)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=g)
+        bn.bias.uniform_(-0.5, 0.5, generator=g)
+    rm, rv = bn.running_mean.clone(), bn.running_var.clone()
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    ya = bn(xa, train=True)
+    (ga,) = torch.autograd.grad(ya, xa, up)
+    yb = global_batch_norm(xb, bn.weight, bn.bias, rm, rv, bn.momentum, bn.eps,
+                           dist.group.WORLD)
+    (gb,) = torch.autograd.grad(yb, xb, up)
+    rel = {"y": ((ya.float() - yb.float()).norm() / ya.float().norm()).item(),
+           "dx": ((ga.float() - gb.float()).norm() / ga.float().norm()).item(),
+           "running_mean": ((bn.running_mean - rm).abs().max()).item(),
+           "running_var": ((bn.running_var - rv).abs().max() / bn.running_var.abs().max()).item()}
+    log(f"15 global_batch_norm (NCCL, world 1) vs the local BatchNorm at (60, 256, 56, 56) "
+        f"bf16: {rel} (bound {GLOBAL_BN_REL})")
+    check(all(v <= GLOBAL_BN_REL for v in rel.values()), f"global_batch_norm: {rel}")
+    return rel
+
+
+def phase15_dp_step(dev, card):
+    """One data-parallel train step on the mesh of one rank (NCCL) against
+    the one-process step: bf16 AirPoseTwoView, B = 30 of 224², the same
+    weights, batch and generator."""
+    from airpose_tpu_torch import parallel
+    from airpose_tpu_torch.bodymodel import synthetic_smplx_params
+    from airpose_tpu_torch.config import TrainConfig
+    from airpose_tpu_torch.data import batch_slice, make_synthetic_dataset
+    from airpose_tpu_torch.models import AirPoseTwoView
+    from airpose_tpu_torch.train import create_train_state, make_twoview_step_fns
+
+    cfg = TrainConfig()
+    B = cfg.batch_size
+    smplx = synthetic_smplx_params().to(dev)
+    batch = batch_slice(make_synthetic_dataset(smplx, B, seed=0), 0, B, dev)
+    runs = {}
+    for name, mesh in (("one process", None), ("mesh of 1", parallel.make_mesh(1))):
+        model = AirPoseTwoView(dtype=torch.bfloat16, seed=0).to(dev)
+        state, tx = create_train_state(model, cfg.lr)
+        step, _ = make_twoview_step_fns(model, smplx, cfg, tx, mesh=mesh)
+        reset_kernel_counts()
+        t = time.perf_counter()
+        state, metrics = step(state, parallel.shard_batch(batch, mesh),
+                              torch.Generator(device=dev).manual_seed(cfg.seed))
+        torch.cuda.synchronize()
+        runs[name] = {"loss": metrics["loss"].item(), "s": time.perf_counter() - t,
+                      "launches": kernel_counts(),
+                      "params": {k: v.detach().clone() for k, v in state.params.items()},
+                      "stats": {k: v.clone() for k, v in state.batch_stats.items()}}
+        del model, state, step
+    a, b = runs["one process"], runs["mesh of 1"]
+    n_params, d_params = params_diff(a["params"], b["params"])
+    n_stats, d_stats = params_diff(a["stats"], b["stats"])
+    out = {"loss": (a["loss"], b["loss"]), "params_unequal": n_params,
+           "params_max_abs_diff": d_params, "stats_unequal": n_stats,
+           "stats_max_abs_diff": d_stats, "launches": b["launches"],
+           "seconds": (a["s"], b["s"])}
+    log(f"15 DP train step on a mesh of 1 (NCCL) vs one process, bf16 B = {B} of 224²: loss "
+        f"{a['loss']!r} vs {b['loss']!r}; {n_params} parameter tensors of {len(a['params'])} "
+        f"not bit-equal (max |diff| {d_params:.3e}), {n_stats} BN statistics (max "
+        f"{d_stats:.3e}); launches {b['launches']} [{card}]")
+    check(abs(a["loss"] - b["loss"]) <= 1e-3 * abs(a["loss"]) and d_params <= 3 * cfg.lr,
+          f"the DP step on a mesh of 1 disagrees with the one-process step: {out}")
+    check(b["launches"]["lbs_skinning"] == 1, f"DP step launches {b['launches']}")
+    return out
+
+
+def phase15_compile_mesh(dev, tmp, card):
+    """compile_results --mesh 1 (--int8 --save-full) on phase 12's AerialPeople
+    records with phase 10's last.ckpt, against the same CLI without --mesh."""
+    from airpose_tpu_torch.eval import compile_results
+
+    ckpt = os.path.join(tmp, "logs", "smoke", "version_0", "checkpoints", "last.ckpt")
+    common = ["--model", "copenet_twoview", "--ckpt", ckpt, "--datapath",
+              os.path.join(tmp, "aerialpeople"), "--split", "test", "--batch_size",
+              str(CLI_BATCH), "--smplx_model_dir", tmp, "--save-full", "--int8",
+              "--platform", dev.type]
+    res = {}
+    for name, extra in (("one process", []), ("--mesh 1", ["--mesh", "1"])):
+        out = os.path.join(tmp, f"mesh_{len(extra)}.pkl")
+        reset_kernel_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            compile_results.main(common + ["--out", out] + extra)
+        torch.cuda.synchronize()
+        with open(out, "rb") as f:
+            res[name] = (pickle.load(f)[0], kernel_counts())
+    (want, n_want), (got, n_got) = res["one process"], res["--mesh 1"]
+    rows = [sum(len(b["output"]["pred_angles0"]) for b in r) for r in (want, got)]
+    diff = max(float(np.abs(gb["output"][k] - wb["output"][k]).max())
+               for gb, wb in zip(got, want) for k in wb["output"])
+    out = {"rows": rows, "batches": len(got), "max_abs_diff": diff, "launches": n_got}
+    log(f"15 compile_results --mesh 1 --int8 --save-full on {rows[0]} AerialPeople records "
+        f"vs one process: rows {rows}, max |diff| over every field {diff:.3e}; launches "
+        f"{n_got} (one process {n_want}) [{card}]")
+    check(rows[0] == rows[1] and len(got) == len(want) and diff <= 1e-5,
+          f"compile_results --mesh 1 differs from one process: {out}")
+    check(n_got == n_want and n_got["int8_stem"] > 0, f"--mesh 1 launches {n_got}, {n_want}")
+    return out
+
+
+def phase15_sharded_ba(dev, card):
+    """bundle_adjust_sharded on the mesh of one rank over BA_FRAMES frames
+    (the reference's chunk) against bundle_adjust, at BAConfig()."""
+    from airpose_tpu_torch import parallel
+    from airpose_tpu_torch.bodymodel import init_vposer_params, synthetic_smplx_params
+    from airpose_tpu_torch.optim import BAConfig, BAState, bundle_adjust_sharded
+
+    smplx, vposer = synthetic_smplx_params().to(dev), init_vposer_params(0).to(dev)
+    problem = ba_problem(smplx, vposer, BA_FRAMES, 0, dev)
+    cfg = BAConfig()
+    t = time.perf_counter()
+    want_state, want = run_ba(smplx, vposer, problem, cfg, dev)
+    want_s = time.perf_counter() - t
+    init, kp, intr = problem
+    kp_t = torch.from_numpy(kp).to(dev)
+    reset_kernel_counts()
+    t = time.perf_counter()
+    got_state, got = bundle_adjust_sharded(
+        smplx, vposer, BAState(*(torch.from_numpy(a).to(dev) for a in init)), kp_t, kp_t,
+        torch.from_numpy(intr).to(dev), cfg, mesh=parallel.make_mesh(1))
+    got_s = time.perf_counter() - t
+    launches = kernel_counts()
+    trace_rel = float(np.max(np.abs(got["trace"] - want["trace"])
+                             / (2e-4 * np.abs(want["trace"]) + 1e-5)))
+    state_rel = max(float(np.max(np.abs(a.cpu().numpy() - b.cpu().numpy())
+                                 / (1e-3 * np.abs(b.cpu().numpy()) + 2e-4)))
+                    for a, b in zip(got_state, want_state))
+    out = {"trace_last": (float(got["trace"][-1]), float(want["trace"][-1])),
+           "trace_of_bound": trace_rel, "state_of_bound": state_rel, "seconds": (got_s, want_s),
+           "launches": launches}
+    log(f"15 --sharded AirPose+ on a mesh of 1 (NCCL) over {BA_FRAMES} frames, "
+        f"{cfg.iters_stage1} + {cfg.iters_stage2} iterations, vs bundle_adjust: trace "
+        f"{got['trace'][-1]:.6f} vs {want['trace'][-1]:.6f}, trace at {trace_rel:.3f} of its "
+        f"bound (rtol 2e-4, atol 1e-5), state at {state_rel:.3f} of its bound (rtol 1e-3, "
+        f"atol 2e-4); {got_s:.2f} s vs {want_s:.2f} s; launches {launches} [{card}]")
+    check(trace_rel <= 1 and state_rel <= 1, f"sharded AirPose+ on a mesh of 1: {out}")
+    check(launches["lbs_skinning"] == 0, f"the sharded inner loop skinned: {launches}")
+    return out
+
+
+def phase15_cluster(dev, tmp, card):
+    """utils.cluster's local backend on a 2-step trainer job (synthetic://12,
+    B = 2 of 64², on the card) that exits 3 once and is requeued."""
+    from airpose_tpu_torch.utils import cluster
+
+    root = os.path.join(tmp, "cluster")
+    os.makedirs(root)
+    with open(os.path.join(root, "smoke_job.py"), "w") as f:
+        f.write(CLUSTER_JOB)
+    sys.path.insert(0, root)
+    try:
+        import smoke_job
+
+        logs, runs = os.path.join(root, "logs"), os.path.join(root, "runs.txt")
+        ckpt = os.path.join(logs, "job", "version_0", "checkpoints", "last.ckpt")
+        argv = ["--name", "job", "--version", "0", "--model", "copenet_twoview", "--datapath",
+                "synthetic://12", "--log_dir", logs, "--batch_size", "2", "--val_batch_size",
+                "2", "--max_steps", "2", "--val_every", "2", "--img_res", "64",
+                "--platform", dev.type]
+        t = time.perf_counter()
+        (launches,) = cluster.mixedmap(smoke_job.train_job, [(argv, ckpt, runs)],
+                                       os.path.join(root, "jobs"))
+        secs = time.perf_counter() - t
+    finally:
+        sys.path.remove(root)
+        sys.modules.pop("smoke_job", None)
+    with open(runs) as f:
+        n_runs = len(f.readlines())
+    step = torch.load(ckpt, map_location="cpu", weights_only=False)["global_step"]
+    log(f"15 utils.cluster local backend: the 2-step trainer job ran {n_runs} times (one exit "
+        f"3, requeued), last.ckpt at step {step}, {secs:.1f} s; the finishing run's launches "
+        f"{launches} [{card}]")
+    check(n_runs == 2 and step == 2 and launches["lbs_skinning"] > 0,
+          f"cluster job: {n_runs} runs, step {step}, launches {launches}")
+    return {"runs": n_runs, "step": step, "seconds": secs, "launches": launches}
+
+
+def phase15_parity(dev, tmp, card):
+    """parity_run on a fixture bundle: phase 10's last.ckpt as the released
+    weights, a precalc pkl from compile_results on phase 12's AerialPeople
+    records, the 10,475-vertex body."""
+    from airpose_tpu_torch.eval import compile_results
+    from airpose_tpu_torch.tools import parity_run
+
+    ckpt = os.path.join(tmp, "logs", "smoke", "version_0", "checkpoints", "last.ckpt")
+    data, work = os.path.join(tmp, "aerialpeople"), os.path.join(tmp, "parity")
+    precalc = os.path.join(tmp, "precalc.pkl")
+    with contextlib.redirect_stdout(io.StringIO()):
+        compile_results.main(["--model", "copenet_twoview", "--torch_ckpt", ckpt, "--datapath",
+                              data, "--split", "test", "--out", precalc, "--batch_size",
+                              str(CLI_BATCH), "--smplx_model_dir", tmp,
+                              "--platform", dev.type])
+        reset_kernel_counts()
+        t = time.perf_counter()
+        report = parity_run.main(["--model", "copenet_twoview", "--torch-ckpt", ckpt,
+                                  "--precalc", precalc, "--datapath", data,
+                                  "--smplx-model-dir", tmp, "--workdir", work,
+                                  "--batch_size", str(CLI_BATCH), "--platform", dev.type])
+        secs = time.perf_counter() - t
+    launches = kernel_counts()
+    fields = {k: report["fields"][k]["max_abs"]
+              for k in ("pred_angles0", "pred_smpltrans1", "pred_betas0", "pred_vertices_cam0")
+              if k in report["fields"]}
+    out = {"n": (report["n_ours"], report["n_precalc"]), "fields_max_abs": fields,
+           "metric_deltas": report.get("metric_deltas"), "seconds": secs, "launches": launches}
+    log(f"15 parity_run on a fixture bundle (phase 10's last.ckpt): {out} [{card}]")
+    check(report["n_ours"] == report["n_precalc"] and all(v < 1e-5 for v in fields.values())
+          and all(abs(d) < 1e-4 for d in report["metric_deltas"].values()),
+          f"parity_run on the fixture bundle: {out}")
+    return out
+
+
+def phase_multidevice(dev, tmp, card):
+    """Phase 15 in process: dryrun_multichip(1), then on a process group of
+    one (NCCL) global BatchNorm, a DP train step, compile_results --mesh 1
+    and --sharded AirPose+; then the cluster requeue and parity_run."""
+    import torch.distributed as dist
+
+    from airpose_tpu_torch.entry import dryrun_multichip
+    from airpose_tpu_torch.parallel import launch
+
+    out = {}
+    t = time.perf_counter()
+    reset_kernel_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        kind, loss, ba_loss = dryrun_multichip(1)
+    out["dryrun"] = {"kind": kind, "loss": loss, "ba_loss": ba_loss,
+                     "launches": kernel_counts(), "seconds": time.perf_counter() - t}
+    log(f"15 {printed.getvalue().strip()} ({out['dryrun']}) [{card}]")
+    check(kind == "dp" and np.isfinite(loss) and np.isfinite(ba_loss)
+          and not dist.is_initialized(), f"dryrun_multichip(1): {out['dryrun']}")
+    launch.init_in_process(dev)
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"phase 15's group: {dist.get_backend()}, {dist.get_world_size()}")
+        for name, fn in (("global_bn", lambda: phase15_global_bn(dev)),
+                         ("dp_step", lambda: phase15_dp_step(dev, card)),
+                         ("compile_mesh", lambda: phase15_compile_mesh(dev, tmp, card)),
+                         ("sharded_ba", lambda: phase15_sharded_ba(dev, card))):
+            t = time.perf_counter()
+            out[name] = fn()
+            out[name + "_s"] = time.perf_counter() - t
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    for name, fn in (("cluster", lambda: phase15_cluster(dev, tmp, card)),
+                     ("parity_run", lambda: phase15_parity(dev, tmp, card))):
+        t = time.perf_counter()
+        out[name] = fn()
+        out[name + "_s"] = time.perf_counter() - t
     return out
 
 
@@ -3344,6 +3776,7 @@ def main():
     inputs = bench_inputs(64, dev)
     crops = inputs[0].reshape((128,) + inputs[0].shape[2:])
     kernels.append(phase_int8_conv(dev, qparams, act_scales, crops))
+    kernels.append(phase_stem(dev, qparams, crops))
     kernels.append(phase_int8_blocks(dev, model, blocks, crops))
     int8_launches, int8_fps = phase_int8_chains(
         dev, model, smplx_params,
@@ -3392,17 +3825,25 @@ def main():
         t13 = time.perf_counter()
         phase13, int8_at_1_crop, kernels[0]["at_b1"] = phase_serving(dev, tmp, card)
         phase13["seconds"] = time.perf_counter() - t13
-    log(f"phase 13: {phase13['seconds']:.1f} s [{card}]")
-    log(json.dumps({"phase13": phase13}))
-    torch.cuda.empty_cache()
-    t14 = time.perf_counter()
-    phase14 = phase_tools(dev, card, train["step_ms"])
-    phase14["seconds"] = time.perf_counter() - t14
-    log(f"phase 14: {phase14['seconds']:.1f} s [{card}]")
-    log(json.dumps({"phase14": phase14}))
+        log(f"phase 13: {phase13['seconds']:.1f} s [{card}]")
+        log(json.dumps({"phase13": phase13}))
+        torch.cuda.empty_cache()
+        t14 = time.perf_counter()
+        phase14 = phase_tools(dev, card, train["step_ms"])
+        phase14["seconds"] = time.perf_counter() - t14
+        log(f"phase 14: {phase14['seconds']:.1f} s [{card}]")
+        log(json.dumps({"phase14": phase14}))
+        torch.cuda.empty_cache()
+        # phase 15 reads phase 10's last.ckpt and npz and phase 12's records
+        t15 = time.perf_counter()
+        phase15 = phase_multidevice(dev, tmp, card)
+        phase15["seconds"] = time.perf_counter() - t15
+    log(f"phase 15: {phase15['seconds']:.1f} s [{card}]")
+    log(json.dumps({"phase15": phase15}))
     # launches: kernel launches in the main path's run of the chain that uses
     # each kernel (int8_block: its 42 conv launches, beside its 13 block calls)
     launches["int8_conv"] = int8_launches["int8"]["int8_conv"]
+    launches["int8_stem"] = int8_launches["int8"]["int8_stem"]
     launches["int8_block"] = int8_launches["int8_block"]["int8_conv"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -3488,6 +3929,31 @@ def main():
                "qat_posture": phase14["qat_posture"]["kernels_vs_plain"]}
     for row, name in ((kernels[0], "lbs_skinning"), (int8_row, "int8_conv")):
         row["phase14_vs_plain"] = {part: v[name] for part, v in checked.items()}
+    # the stem kernel: one launch a call of the int8 trunk, on each phase's
+    # int8 path, each counted in its run
+    stem_row = next(k for k in kernels if k["name"] == "int8_stem")
+    stem_row["phase9_launches"] = {
+        "_sep int8 inference": families["sep_serving"]["int8"]["launches"]["int8_stem"]}
+    stem_row["phase12_launches"] = {name: v["int8_stem_launches"] for name, v in passes.items()
+                                    if isinstance(v, dict) and v.get("int8_stem_launches")}
+    stem_row["phase13_launches"] = {
+        f"--int8 benchtest, 2 servers × {n13} frames":
+            phase13["served"]["int8"]["launches"]["int8_stem"],
+        f"staged int8, 3 rounds × {n13} frames × 2 views":
+            phase13["staged"]["int8"]["launches"] // 52}
+    stem_row["phase14_launches"] = {
+        "dress rehearsal [4/10] --int8 eval": rehearsal["[4/10]"]["int8_stem"],
+        "qat_posture, calibration and 4 deployed arms":
+            phase14["qat_posture"]["launches"]["int8_stem"]}
+    stem_row["phase15_launches"] = {
+        "compile_results --mesh 1 --int8": phase15["compile_mesh"]["launches"]["int8_stem"]}
+    stem_row["batch_invariance"] = phase14["stem_batch"]
+    # phase 15's launches of skinning and the int8 conv on each path
+    kernels[0]["phase15_launches"] = {
+        name: phase15[name]["launches"]["lbs_skinning"]
+        for name in ("dryrun", "dp_step", "compile_mesh", "sharded_ba", "cluster", "parity_run")}
+    int8_row["phase15_launches"] = {
+        "compile_results --mesh 1 --int8": phase15["compile_mesh"]["launches"]["int8_conv"]}
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,temperature.gpu,"
          "power.draw", "--format=csv"],

@@ -28,6 +28,16 @@ from airpose_tpu_torch.train.state import create_train_state, model_variables
 FAMILIES = list(MODEL_REGISTRY)
 
 
+@pytest.fixture(autouse=True)
+def _drop_tmp_path(request):
+    """Deletes each test's tmp_path when it ends: its checkpoints (~100-400
+    MB each) would otherwise stay in the base temps pytest keeps."""
+    yield
+    path = request.node.funcargs.get("tmp_path")
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def few_threads():
     """Two intra-op threads while this module runs: the tier runs six

@@ -72,6 +72,16 @@ B, N, IMG, V = 3, 7, 64, 99
 EPS = np.random.default_rng(11).normal(size=(2 * B, 32)).astype(np.float32)
 
 
+@pytest.fixture(autouse=True)
+def _drop_tmp_path(request):
+    """Deletes each test's tmp_path when it ends: its checkpoints (~100-400
+    MB each) would otherwise stay in the base temps pytest keeps."""
+    yield
+    path = request.node.funcargs.get("tmp_path")
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def few_threads():
     """Two intra-op threads while this module runs (six pytest workers share
@@ -424,8 +434,9 @@ def test_cli_other_sources(source, tmp_path, capsys):
 
 def test_cli_synthetic_checkpoints_and_refusals(tmp_path, capsys):
     """synthetic:// on its 300-vertex body; --ckpt reading a --train_reg_only
-    checkpoint of the port's trainer (its optimizer state ignored); --mesh
-    N > 1 and an orbax directory refused."""
+    checkpoint of the port's trainer (its optimizer state ignored); --mesh N
+    with more ranks than the process group has (one here) and an orbax
+    directory refused."""
     model = perturbed_model("copenet_twoview", 3)
     state, _ = create_train_state(model, 5e-5, train_reg_only=True)
     CheckpointManager(str(tmp_path / "ckpts"), "copenet_twoview").save(state, "last")
@@ -437,7 +448,7 @@ def test_cli_synthetic_checkpoints_and_refusals(tmp_path, capsys):
     assert _rows(out, "pred_angles0") == 5
     with open(out, "rb") as f:
         assert pickle.load(f)[0][0]["output"]["pred_vertices_cam0"].shape == (2, 300, 3)
-    for bad, msg in ((["--mesh", "2"], 'ROADMAP item "Multi-device"'),
+    for bad, msg in ((["--mesh", "2"], "the process group has 1"),
                      (["--ckpt", str(tmp_path / "ckpts")], "orbax")):
         with pytest.raises(SystemExit):
             tcr.main(_cli(out, "--datapath", "synthetic://5", *bad))

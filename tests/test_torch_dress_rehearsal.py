@@ -8,6 +8,7 @@ armed at 48 fine-tune steps), which is slow as the JAX rehearsal is."""
 import importlib.util
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -18,6 +19,16 @@ from airpose_tpu_torch.tools.dress_rehearsal import main, run
 KEYS = ("train_best_val", "converter_roundtrip_max_err", "synth_bf16", "synth_int8", "real",
         "real_ft", "ba_stage1_first", "ba_stage1_final", "ba_loss_final",
         "benchtest_absdiff_pose_m1", "benchtest_served_fps", "h36m")
+
+
+@pytest.fixture(autouse=True)
+def _drop_tmp_path(request):
+    """Deletes each test's tmp_path when it ends: its checkpoints (~100-400
+    MB each) would otherwise stay in the base temps pytest keeps."""
+    yield
+    path = request.node.funcargs.get("tmp_path")
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 @pytest.fixture(autouse=True)

@@ -15,6 +15,8 @@ staged steps 1e-5 (tests/test_models.py's), the weight carry exact, the int8
 trunks' features exact on the carried int8 operands and the IEF on them
 1e-4."""
 
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +39,16 @@ from airpose_tpu_torch.train.checkpoint import (int8_operands_from_jax,
 B, IMG = 2, 64
 FAMILIES = list(MODEL_REGISTRY)
 SEP = "copenet_twoview_sep"
+
+
+@pytest.fixture(autouse=True)
+def _drop_tmp_path(request):
+    """Deletes each test's tmp_path when it ends: its checkpoints (~100-400
+    MB each) would otherwise stay in the base temps pytest keeps."""
+    yield
+    path = request.node.funcargs.get("tmp_path")
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 def reference_sd(model, family):

@@ -384,3 +384,49 @@ def test_int8_trunk_is_batch_invariant(setup):
     np.testing.assert_array_equal(feats["jax", 60], feats["jax", 1])
     np.testing.assert_array_equal(feats["port", 60], feats["port", 1])
     np.testing.assert_array_equal(feats["port", 1], feats["jax", 1])
+
+
+def _within_one_bf16_step(a, b):
+    """|a − b| ≤ one bf16 step of the larger value, + 1e-6 (sums that cancel)."""
+    return bool((np.abs(a - b) <= np.maximum(np.abs(a), np.abs(b)) * 2.0 ** -7 + 1e-6).all())
+
+
+@pytest.mark.parametrize("n", [1, 5])
+def test_int8_stem_map_matches_jax(setup, n):
+    """The stem's bf16 convolution map (before bias and pool) and the whole
+    stem (conv, pool, bias, relu) on the carried weights at B = 1 and B = 5.
+    XLA's and torch's CPU convolutions sum the 147 products in other orders,
+    so the two maps lie one bf16 step apart on a few elements (measured
+    3.7e-5 to 7.0e-5 of them at 64² and 224², N(0, 1) and N(0, 0.09)
+    crops): bound one step of the larger of the two values, plus 1e-6 for
+    the few sums that cancel to below 1e-4 (f32 rounding of 147 products of
+    size ~0.1 is ~1e-7 there), on at most 2e-4 of the map. Crop 0's map is
+    the same bits at both batch sizes."""
+    from airpose_tpu_torch.ops import int8_stem
+
+    qp, _, _ = setup["carried"]
+    crops = np.random.default_rng(4).normal(size=(5, IMG, IMG, 3)).astype(np.float32)[:n]
+    w_hwio = setup["qp"]["stem"]["w"]
+    jmap = np.asarray(jax.lax.conv_general_dilated(
+        jnp.asarray(crops).astype(jnp.bfloat16), w_hwio, (2, 2), ((3, 3), (3, 3)),
+        dimension_numbers=("NHWC", "HWIO", "NHWC")).astype(jnp.float32))
+    tmap = int8_stem.stem_conv(torch.from_numpy(crops), qp["stem"]["w"]).float().numpy()
+    assert tmap.shape == (n, IMG // 2, IMG // 2, 64)
+    assert _within_one_bf16_step(tmap, jmap)
+    assert (tmap != jmap).mean() <= 2e-4
+    # the kernel's fixed-order arithmetic in torch ops, within one bf16 step
+    # of the plain convolution (another order of summation)
+    ordered = int8_stem.stem_conv_ordered(torch.from_numpy(crops), qp["stem"]["w"]).float()
+    assert _within_one_bf16_step(ordered.numpy(), tmap)
+    one = int8_stem.stem_conv(torch.from_numpy(crops[:1]), qp["stem"]["w"]).float().numpy()
+    np.testing.assert_array_equal(one[0], tmap[0])
+    tstem = tq.int8_stem(qp["stem"], torch.from_numpy(crops)).float().numpy()
+    h = jnp.asarray(jmap).astype(jnp.bfloat16)
+    h = jax.nn.relu((h.astype(jnp.float32) + setup["qp"]["stem"]["b"]).astype(jnp.bfloat16))
+    h = jax.lax.reduce_window(h, -jnp.inf, jax.lax.max, (1, 3, 3, 1), (1, 2, 2, 1),
+                              ((0, 0), (1, 1), (1, 1), (0, 0)))
+    jstem = np.asarray(h.astype(jnp.float32))
+    # after the bias (which can cancel the map) a flipped map value moves
+    # the output by one step of the map, not of the output
+    assert np.abs(tstem - jstem).max() <= np.abs(jmap).max() * 2.0 ** -7
+    assert (tstem != jstem).mean() <= 2e-4

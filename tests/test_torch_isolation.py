@@ -286,3 +286,38 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build_all()
+
+
+def test_multi_device_cluster_parity_and_stem_modules_import_no_jax():
+    """The modules that completed the port (parallel/, utils/cluster.py,
+    tools/parity_run.py, ops/int8_stem.py) import neither JAX nor
+    airpose_tpu."""
+    code = (
+        "import sys\n"
+        "import airpose_tpu_torch.parallel, airpose_tpu_torch.parallel.launch\n"
+        "import airpose_tpu_torch.utils.cluster, airpose_tpu_torch.tools.parity_run\n"
+        "import airpose_tpu_torch.ops.int8_stem, airpose_tpu_torch.entry\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax')"
+        " or m == 'airpose_tpu' or m.startswith('airpose_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_parity_run_and_multichip_dryrun_raise_without_cuda(tmp_path):
+    """parity_run and dryrun_multichip take the card unless asked for the
+    CPU: without CUDA each raises before it reads or writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from airpose_tpu_torch.entry import dryrun_multichip
+    from airpose_tpu_torch.tools import parity_run
+
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        parity_run.main(["--torch-ckpt", missing, "--precalc", missing, "--datapath", missing,
+                         "--workdir", missing])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip(1)
+    assert not (tmp_path / "missing").exists()

@@ -15,6 +15,7 @@ from airpose_tpu_torch.models.resnet import ResNet50
 from airpose_tpu_torch.ops import fused_bottleneck as fb
 from airpose_tpu_torch.ops import int8_bottleneck as ib
 from airpose_tpu_torch.ops import int8_conv as ic
+from airpose_tpu_torch.ops import int8_stem as st
 
 
 @pytest.fixture
@@ -351,3 +352,51 @@ def test_int8_conv_kernel_rejects_bad_inputs(cuda):
     blk = _int8_block_operands(64, 32, 64, 2, True, cuda)
     with pytest.raises(ValueError, match="even"):
         ib.int8_block(torch.zeros(1, 7, 8, 64, dtype=torch.int8, device=cuda), blk)
+
+
+def _stem_inputs(n, h, w, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, h, w, 3, generator=g)
+    wt = (torch.randn(64, 3, 7, 7, generator=g) * 0.1).to(torch.bfloat16)
+    return x.to(device), wt.to(device)
+
+
+def test_int8_stem_cuda_rejects_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        st.stem_conv_cuda(*_stem_inputs(1, 16, 16, "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w", [(1, 224, 224), (3, 64, 64), (2, 37, 51)])
+def test_int8_stem_kernel_matches_ordered_and_plain(cuda, n, h, w):
+    """The kernel equals its fixed-order arithmetic in torch ops bit for bit,
+    and lies within one bf16 step of the plain (cuDNN) convolution, which
+    sums in another order (1e-6 more where a sum cancels to near 0)."""
+    x, wt = _stem_inputs(n, h, w, cuda)
+    got = st.stem_conv_cuda(x, wt)
+    torch.cuda.synchronize()
+    assert got.shape == (n, st.out_size(h), st.out_size(w), 64)
+    assert torch.equal(got, st.stem_conv_ordered(x, wt))
+    got, want = got.float(), st.stem_conv_reference(x, wt).float()
+    # one bf16 step of the larger value, + 1e-6 where a sum cancels
+    step = torch.maximum(got.abs(), want.abs()) * 2.0 ** -7 + 1e-6
+    assert bool(((got - want).abs() <= step).all())
+
+
+@pytest.mark.cuda
+def test_int8_stem_kernel_is_batch_invariant(cuda):
+    """Crop 0's map, alone and as the first of 60 and of 128 crops, is the
+    same bits."""
+    x, wt = _stem_inputs(128, 224, 224, cuda, seed=3)
+    one = st.stem_conv_cuda(x[:1], wt)[0]
+    for n in (60, 128):
+        assert torch.equal(st.stem_conv_cuda(x[:n], wt)[0], one)
+
+
+@pytest.mark.cuda
+def test_int8_stem_kernel_rejects_bad_inputs(cuda):
+    x, wt = _stem_inputs(1, 32, 32, cuda)
+    with pytest.raises(ValueError, match="expected bfloat16"):
+        st.stem_conv_cuda(x, wt.float())
+    with pytest.raises(ValueError, match="expected \\(N, H, W, 3\\)"):
+        st.stem_conv_cuda(x[..., :2], wt)

@@ -4,6 +4,7 @@ weights, on the CPU, f32)."""
 
 import filecmp
 import math
+import shutil
 from pathlib import Path
 
 import jax
@@ -21,6 +22,16 @@ from airpose_tpu_torch.train.checkpoint import (load_reference_state_dict,
                                                 state_dict_from_flax)
 
 B, IMG = 2, 64
+
+
+@pytest.fixture(autouse=True)
+def _drop_tmp_path(request):
+    """Deletes each test's tmp_path when it ends: its checkpoints (~100-400
+    MB each) would otherwise stay in the base temps pytest keeps."""
+    yield
+    path = request.node.funcargs.get("tmp_path")
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,7 @@ import asyncio
 import contextlib
 import io
 import os
+import shutil
 import socket
 import struct
 import subprocess
@@ -40,6 +41,16 @@ IMG = 64
 BB = np.asarray([0.0, 0.0, 1.0], np.float32)
 INIT_TRANS = np.asarray([0.0, 0.0, 10.0], np.float32)
 SEP = "copenet_twoview_sep"
+
+
+@pytest.fixture(autouse=True)
+def _drop_tmp_path(request):
+    """Deletes each test's tmp_path when it ends: its checkpoints (~100-400
+    MB each) would otherwise stay in the base temps pytest keeps."""
+    yield
+    path = request.node.funcargs.get("tmp_path")
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 @pytest.fixture(autouse=True, scope="module")
