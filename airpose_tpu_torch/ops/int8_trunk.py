@@ -17,8 +17,9 @@ The trunk's folded-BN convolutions are quantized for inference:
     stem's output and the input of an int8 stage after a bf16 one; the
     dynamic path (``act_scales=None``, calibration) and the clip-rate
     diagnostic quantize every conv input in torch, on the bf16 map;
-  * the stem stays a folded bf16 conv, on a card the kernel of
-    ops/int8_stem.py, which sums in one order at every batch size;
+  * the stem stays a folded bf16 conv with its max-pool, bias and relu, on
+    a card one kernel of ops/int8_stem.py, which sums in one order at every
+    batch size;
     ``int8_stages`` keeps other stages as folded bf16 convs too (cuDNN's, whose
     order of summation depends on the batch size on a card).
 
@@ -38,7 +39,7 @@ from torch.profiler import record_function
 from . import _build
 from .fused_bottleneck import fold_bn_into_conv
 from .int8_conv import int8_conv, int8_conv_reference, quantize
-from .int8_stem import stem_conv
+from .int8_stem import stem as stem_fn
 
 BF16 = torch.bfloat16
 STAGES = (3, 4, 6, 3)
@@ -142,14 +143,10 @@ def _fconv(x: torch.Tensor, conv: Dict, stride: int = 1) -> torch.Tensor:
 
 def int8_stem(stem: Dict, x: torch.Tensor) -> torch.Tensor:
     """The trunk's folded-BN bf16 stem: (N, H, W, 3) f32 → the
-    (N, H/4, W/4, 64) bf16 map the int8 layers read. The convolution is
-    ops/int8_stem.py's: the kernel on a card, the plain version on the CPU."""
-    h = stem_conv(x, stem["w"])
-    # relu(bf16(f32(h) + b)) is monotone in h, so it commutes with the
-    # max: pool first, then add and relu on a quarter of the values, in
-    # place (bf16 out, without an f32 map)
-    h = _nhwc(F.max_pool2d(_nchw(h), 3, stride=2, padding=1))
-    return h.add_(stem["b"]).relu_()
+    (N, H/4, W/4, 64) bf16 map the int8 layers read: conv, max-pool, bias
+    and relu, ops/int8_stem.py's ``stem`` (one kernel on a card, the plain
+    version on the CPU)."""
+    return stem_fn(x, stem["w"], stem["b"])
 
 
 def resnet50_int8_infer(qparams: Dict, x: torch.Tensor, act_scales: Optional[Dict] = None,

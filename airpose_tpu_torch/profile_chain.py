@@ -10,8 +10,8 @@ steps after a warm-up and prints one JSON line:
   - ``busy_ms``: summed device time of all kernels and copies per step (one
     stream, so they do not overlap) and ``idle_share`` = 1 − busy / wall_ms;
   - ``spans_ms``: device time per step of the kernels launched inside each
-    record_function span of the chain (the trunk's own spans: stem and
-    int8_layers for ``int8``; front and int8_layers for ``int8_block``;
+    record_function span of the chain (the trunk's own spans: stem, one
+    kernel, and int8_layers for ``int8``; front and int8_layers for ``int8_block``;
     stem, layer1 and tail for ``bf16``; then ief, smplx, project), and each
     span's top kernels;
   - ``top_kernels``: the kernels with the most device time per step.
@@ -33,10 +33,11 @@ B, STEPS = 64, 5
 SPANS = ("stem", "front", "layer1", "tail", "int8_layers", "ief", "smplx", "project")
 # The port's own kernels launch through ctypes, not through an aten op, so
 # the profiler's tree does not place them under a span: attribute by name.
-# Both int8 trunks launch the int8 conv kernel only in their int8_layers span,
-# the int8 trunk its stem kernel only in its stem span.
+# Both int8 trunks launch the int8 conv kernel only in their int8_layers span;
+# the int8 trunk's stem span is one launch of the fused stem kernel (conv,
+# max-pool, bias and relu).
 OWN_KERNELS = {"bottleneck_kernel": "layer1", "skinning_kernel": "smplx",
-               "int8_conv_kernel": "int8_layers", "stem_kernel": "stem"}
+               "int8_conv_kernel": "int8_layers", "fused_stem_kernel": "stem"}
 
 
 def _span_kernels(span):

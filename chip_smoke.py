@@ -20,11 +20,13 @@ Phases, each of which exits non-zero on failure:
      and bf16 + int8, among them) at layer1's 3×3 (128, 56, 56, 64) and
      layer2_0's 3×3/2 (128, 56, 56, 128); then the 52 convs of the int8
      trunk at 128 crops, as the trunk makes them, replayed through the
-     kernel, the plain version and torch._int_mm; the int8 trunk's stem
-     kernel (csrc/int8_stem.cu) at 1, 60 and 128 crops of 224²: bit for bit
-     its fixed-order arithmetic in torch ops, within one bf16 step of its
-     plain version (cuDNN) on at most STEM_STEP_SHARE of the map, timed
-     beside cuDNN's convolution;
+     kernel, the plain version and torch._int_mm; the int8 trunk's fused
+     stem kernel (csrc/int8_stem.cu: conv, max-pool, bias, relu) at 1, 60
+     and 128 crops of 224²: within one bf16 step of the map of its plain
+     version (cuDNN) and of the fixed-order conv, differing on at most
+     STEM_STEP_SHARE of the outputs, crops 0, 59 and 127 bit-equal alone
+     and in the 60- and 128-crop calls, timed beside cuDNN's conv alone and
+     the composed library route;
   6. the 13 int8 blocks of layers 2-4 chained at 128 crops of 224²: each
      within 1 int8 step on < 0.5% of elements of its plain version, with
      kernel, plain, torch._int_mm and bound times;
@@ -223,12 +225,14 @@ CHAIN_REL_L2 = 5e-2
 # exact), so their chains differ only in skinning's f32 summation order:
 # measured rel-L2 4.8e-8 (verts) and 4e-9 (j2d) on the H100.
 INT8_CHAIN_REL_L2 = 1e-5
-# The stem kernel against its plain version (cuDNN's bf16 convolution): both
-# sum 147 exact products in f32 in other orders and round once, so an output
-# can lie one bf16 step apart (of the larger value; 1e-6 more where a sum
-# cancels towards 0). On the CPU, XLA's and torch's stems differ so on
-# 3.7e-5 to 7.0e-5 of the map (tests/test_torch_int8.py); bound: at most
-# 1e-3 of the elements.
+# The fused stem kernel against its plain version (cuDNN's bf16 conv, pool,
+# bias, relu) and against the fixed-order conv with the same pool, bias and
+# relu: the convs sum 147 exact products in f32 in other orders (the tensor
+# cores in their own) and round once, so a map value can lie one bf16 step
+# apart (1e-6 more where a sum cancels towards 0), and the output then lies
+# within int8_stem.one_step_range of the other's pre-bias pooled value. On
+# the CPU, XLA's and torch's stems differ so on 3.7e-5 to 7.0e-5 of the map
+# (tests/test_torch_int8.py); bound: at most 1e-3 of the outputs differ.
 STEM_STEP_SHARE = 1e-3
 STEM_CROPS = (1, 60, 128)
 # global_batch_norm (f64 statistics, f32 normalisation) against torch's
@@ -703,61 +707,88 @@ def phase_int8_conv(dev, qparams, act_scales, crops):
 
 
 
-def stem_at(w, x):
-    """The stem kernel at one batch against its plain version (cuDNN's bf16
-    convolution, within one bf16 step on at most STEM_STEP_SHARE of the
-    map) and its own arithmetic in torch ops (bit for bit), then the kernel,
-    the plain version, cuDNN's convolution alone and the bound."""
+def stem_at(w, b, x):
+    """The fused stem kernel at one batch against its plain version (cuDNN's
+    bf16 conv, then pool, bias and relu) and against the fixed-order conv
+    with the same pool, bias and relu: each output within one bf16 step of
+    the other's pre-bias pooled value, differing on at most STEM_STEP_SHARE
+    of the outputs; then the kernel, the plain version, cuDNN's conv alone
+    (the library yardstick), the composed library route (cuDNN's conv,
+    max_pool2d, add, relu) and the bound. Returns (row, the kernel's output)."""
     from torch.nn import functional as F
 
     from airpose_tpu_torch.ops import int8_stem as st
 
     n = x.shape[0]
-    got = st.stem_conv_cuda(x, w)
-    want = st.stem_conv_reference(x, w)
+    got = st.stem_cuda(x, w, b)
     torch.cuda.synchronize()
-    exact = torch.equal(got, st.stem_conv_ordered(x, w))
-    g, r = got.float(), want.float()
-    diff = (g - r).abs()
-    within = bool((diff <= torch.maximum(g.abs(), r.abs()) * 2.0 ** -7 + 1e-6).all())
-    share = (g != r).float().mean().item()
-    err = diff.max().item()
-    log(f"int8 stem at {n} crops: kernel vs its fixed-order torch ops bit for bit {exact}; vs "
-        f"the plain (cuDNN) conv max_abs_err {err:.3e}, within one bf16 step {within}, on "
-        f"{share:.3e} of the map (bound {STEM_STEP_SHARE})")
-    check(exact, f"the stem kernel differs from its fixed-order arithmetic at {n} crops")
-    check(within and share <= STEM_STEP_SHARE,
-          f"the stem kernel disagrees with its plain version at {n} crops: {err}, {share}")
+    row = {}
+    for name, conv, plain in (("plain", st.stem_conv_reference, st.stem_reference),
+                              ("ordered", st.stem_conv_ordered, st.stem_ordered)):
+        lo, hi = st.one_step_range(st.pool(conv(x, w)), b)
+        want = plain(x, w, b)
+        within = bool(((got >= lo) & (got <= hi)).all())
+        share = (got != want).float().mean().item()
+        err = (got.float() - want.float()).abs().max().item()
+        log(f"int8 stem at {n} crops: the fused kernel vs stem_{name}: max_abs_err {err:.3e}, "
+            f"within one step of the map {within}, differing on {share:.3e} of the outputs "
+            f"(bound {STEM_STEP_SHARE})")
+        check(within and share <= STEM_STEP_SHARE,
+              f"the stem kernel disagrees with stem_{name} at {n} crops: {err}, {share}")
+        row |= {f"{name}_max_abs_err": err, f"{name}_differing_share": share}
+    del lo, hi, want
+    torch.cuda.empty_cache()
     xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
-    ms = time_ms(lambda: st.stem_conv_cuda(x, w), iters=50, warmup=5)
-    plain_ms = time_ms(lambda: st.stem_conv_reference(x, w), iters=50, warmup=5)
+
+    def composed():  # the library route: cuDNN's conv, then three more passes
+        h = F.max_pool2d(F.conv2d(xb, w, stride=2, padding=3), 3, stride=2, padding=1)
+        return h.add_(b[:, None, None]).relu_()
+
+    ms = time_ms(lambda: st.stem_cuda(x, w, b), iters=50, warmup=5)
+    plain_ms = time_ms(lambda: st.stem_reference(x, w, b), iters=50, warmup=5)
     library_ms = time_ms(lambda: F.conv2d(xb, w, stride=2, padding=3), iters=50, warmup=5)
+    composed_ms = time_ms(composed, iters=50, warmup=5)
     flops, n_bytes = st.stem_cost(x)
     bound_ms, bound_by = bound(n_bytes, flops, BF16_FLOP_PER_S)
-    fma_ms = flops / F32_FLOP_PER_S * 1e3
-    log(f"int8 stem at {n} crops: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-        f"{plain_ms:.4f} ms (the bf16 cast and cuDNN), library {library_ms:.4f} ms (cuDNN's "
-        f"conv alone), bound {bound_ms:.4f} ms ({bound_by}; the f32 FMA floor of this design "
-        f"{fma_ms:.4f} ms), kernel at {bound_ms / ms:.1%} of its bound")
-    return {"max_abs_err": err, "differing_share": share, "ms": ms, "plain_ms": plain_ms,
+    log(f"int8 stem at {n} crops: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{n_bytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, library {library_ms:.4f} ms "
+        f"(cuDNN's conv alone), composed library route {composed_ms:.4f} ms (cuDNN's conv, "
+        f"max_pool2d, add, relu), bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+        f"{bound_ms / ms:.1%} of its bound")
+    return {"max_abs_err": row["plain_max_abs_err"], **row, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "f32_fma_floor_ms": fma_ms}
+            "composed_library_ms": composed_ms}, got
 
 
 def phase_stem(dev, qparams, crops):
-    """The int8 trunk's stem kernel at 1, 60 and 128 crops of 224² (the
-    chain's), on the main path's folded stem weight and crops."""
+    """The int8 trunk's fused stem kernel at 1, 60 and 128 crops of 224² (the
+    chain's), on the main path's folded stem weight, bias and crops; then
+    crops 0, 59 and 127 each alone against their places in the 60- and
+    128-crop calls, bit for bit."""
     from airpose_tpu_torch.ops import _build
+    from airpose_tpu_torch.ops import int8_stem as st
 
-    ptxas = ptxas_lines(_build.build_log.get("int8_stem", ""), "stem_kernel")
+    ptxas = ptxas_lines(_build.build_log.get("int8_stem", ""), "fused_stem_kernel")
     log(f"int8 stem kernel ptxas: {' | '.join(ptxas) or 'not built in this process'}")
-    w = qparams["stem"]["w"]
-    rows = {n: stem_at(w, crops[:n]) for n in STEM_CROPS}
+    w, b = qparams["stem"]["w"], qparams["stem"]["b"]
+    rows, outs = {}, {}
+    for n in STEM_CROPS:
+        rows[n], outs[n] = stem_at(w, b, crops[:n])
+    invariant = {}
+    for k in (0, 59, 127):
+        one = st.stem_cuda(crops[k:k + 1], w, b)[0]
+        for n in STEM_CROPS:
+            if k < n:
+                invariant[f"crop {k} alone = crop {k} of {n}"] = torch.equal(outs[n][k], one)
+    log(f"int8 stem position and batch invariance: {invariant}")
+    check(all(invariant.values()), f"the stem kernel is not batch-invariant: {invariant}")
     row = rows[crops.shape[0]]
     row.update({f"at_{n}_crops": rows[n] for n in STEM_CROPS if n != crops.shape[0]})
+    row["invariance"] = invariant
+    row["ptxas"] = ptxas
     return {"name": "int8_stem", "route": "cuda", "source": "airpose_tpu_torch/csrc/int8_stem.cu",
-            "replaces": "airpose_tpu/ops/int8_trunk.py:175 (the int8 trunk's stem, an XLA "
-                        "conv)"} | row
+            "replaces": "airpose_tpu/ops/int8_trunk.py:175-184 (the int8 trunk's stem: an XLA "
+                        "conv, bias, relu and reduce_window)"} | row
 
 
 def phase_int8_blocks(dev, model, blocks, crops):

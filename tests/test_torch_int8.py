@@ -430,3 +430,65 @@ def test_int8_stem_map_matches_jax(setup, n):
     # the output by one step of the map, not of the output
     assert np.abs(tstem - jstem).max() <= np.abs(jmap).max() * 2.0 ** -7
     assert (tstem != jstem).mean() <= 2e-4
+
+
+def _jax_stem(x, w_hwio, b):
+    """JAX's stem (airpose_tpu/ops/int8_trunk.py:175-184): the bf16 conv map,
+    then the bias, relu and 3×3/2 reduce_window; → (map, stem) as f32."""
+    h = jax.lax.conv_general_dilated(
+        jnp.asarray(x).astype(jnp.bfloat16), w_hwio, (2, 2), ((3, 3), (3, 3)),
+        dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    y = jax.nn.relu((h.astype(jnp.float32) + b).astype(jnp.bfloat16))
+    y = jax.lax.reduce_window(y, -jnp.inf, jax.lax.max, (1, 3, 3, 1), (1, 2, 2, 1),
+                              ((0, 0), (1, 1), (1, 1), (0, 0)))
+    return np.asarray(h.astype(jnp.float32)), np.asarray(y.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("n", [1, 5])
+@pytest.mark.parametrize("size", [(IMG, IMG), (37, 51)])
+def test_stem_reference_matches_trunk_and_jax(setup, n, size):
+    """stem_reference, the fused stem kernel's plain version, equals the int8
+    trunk's stem as it was composed before the kernel fused it (the plain
+    conv, then max-pool, bias and relu in torch) and int8_trunk.int8_stem on
+    the CPU, bit for bit; and JAX's stem (conv, bias, relu, reduce_window)
+    within test_int8_stem_map_matches_jax's bound, at 64² and at a ragged
+    37×51."""
+    from torch.nn import functional as F
+
+    from airpose_tpu_torch.ops import int8_stem
+
+    qp, _, _ = setup["carried"]
+    w, b = qp["stem"]["w"], qp["stem"]["b"]
+    crops = np.random.default_rng(5).normal(size=(n,) + size + (3,)).astype(np.float32)
+    x = torch.from_numpy(crops)
+    got = int8_stem.stem_reference(x, w, b)
+    composed = F.max_pool2d(int8_stem.stem_conv(x, w).permute(0, 3, 1, 2), 3, stride=2,
+                            padding=1).permute(0, 2, 3, 1).add_(b).relu_()
+    assert got.shape == (n, (size[0] + 3) // 4, (size[1] + 3) // 4, 64)
+    assert torch.equal(got, composed)
+    assert torch.equal(tq.int8_stem(qp["stem"], x), got)
+    jmap, jstem = _jax_stem(crops, setup["qp"]["stem"]["w"], setup["qp"]["stem"]["b"])
+    tstem = got.float().numpy()
+    assert np.abs(tstem - jstem).max() <= np.abs(jmap).max() * 2.0 ** -7
+    assert (tstem != jstem).mean() <= 2e-4
+
+
+@pytest.mark.parametrize("n,size", [(5, (IMG, IMG)), (2, (37, 51))])
+def test_stem_ordered_within_one_step_of_reference(setup, n, size):
+    """stem_ordered (the conv summed in one fixed order, then the same pool,
+    bias and relu) against stem_reference, both ways: each output lies
+    within one bf16 step of the other's pre-bias pooled value
+    (int8_stem.one_step_range), and at most 1e-3 of the outputs differ
+    (chip_smoke.py's STEM_STEP_SHARE, the bound the kernel is held to)."""
+    from airpose_tpu_torch.ops import int8_stem
+
+    qp, _, _ = setup["carried"]
+    w, b = qp["stem"]["w"], qp["stem"]["b"]
+    x = torch.from_numpy(
+        np.random.default_rng(6).normal(size=(n,) + size + (3,)).astype(np.float32))
+    ordered, plain = int8_stem.stem_ordered(x, w, b), int8_stem.stem_reference(x, w, b)
+    for got, conv in ((ordered, int8_stem.stem_conv_reference),
+                      (plain, int8_stem.stem_conv_ordered)):
+        lo, hi = int8_stem.one_step_range(int8_stem.pool(conv(x, w)), b)
+        assert bool(((got >= lo) & (got <= hi)).all()), conv.__name__
+    assert (ordered != plain).float().mean().item() <= 1e-3
