@@ -15,7 +15,7 @@ workflow's tools):
   tools/         the fixture generators, the dress rehearsal that chains every
                  CLI, the training-step roofline, the QAT posture experiment,
                  calibration, real-capture preparation, the HDF5 export
-  utils/         profiling (trace, sync, StepTimer) and the mesh renderer
+  utils/         profiling (span, trace, sync) and the mesh renderer
   serve/         the 145-float wire (protocol.py), the staged 3-step regressor
                  (staged.py), the per-drone TCP server, the served-vs-offline
                  benchtest, the lag-one report and the result viz

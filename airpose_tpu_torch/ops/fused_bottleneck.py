@@ -22,8 +22,8 @@ from typing import Dict, List, Mapping
 
 import torch
 from torch.nn import functional as F
-from torch.profiler import record_function
 
+from ..utils.profiling import span
 from . import _build
 
 C_IN = 64           # layer1 input channels (after stem+maxpool)
@@ -170,9 +170,9 @@ def resnet50_fused_infer(trunk, x: torch.Tensor, stage_ops: StageOps = None,
     ``use_kernels=False`` layer1 runs its plain version on any device."""
     if stage_ops is None:
         stage_ops = stage1_params_from_state_dict(trunk.state_dict())
-    with record_function("stem"):
+    with span("stem"):
         stem = trunk(x, part="stem").to(torch.bfloat16).contiguous()
-    with record_function("layer1"):
+    with span("layer1"):
         h = (fused_stage1 if use_kernels else fused_stage1_reference)(stem, stage_ops)
-    with record_function("tail"):
+    with span("tail"):
         return trunk(h, part="tail")

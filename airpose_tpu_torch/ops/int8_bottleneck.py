@@ -26,8 +26,8 @@ and ``out_int8`` as plain values.
 from typing import Dict, List
 
 import torch
-from torch.profiler import record_function
 
+from ..utils.profiling import span
 from . import _build
 from .int8_conv import int8_conv_cuda, int8_conv_reference
 
@@ -116,9 +116,9 @@ def resnet50_int8_block_infer(trunk, blocks: Dict, x: torch.Tensor,
     trunk), then the 13 int8 blocks of layers 2-4 (``blocks`` from
     ``quantize_trunk_blocks``). The port of
     airpose_tpu/ops/int8_bottleneck.py::resnet50_int8_pallas_infer."""
-    with record_function("front"):
+    with span("front"):
         front = trunk(x, part="front")
-    with record_function("int8_layers"):
+    with span("int8_layers"):
         # post-relu, so the clip's lower bound is 0
         h = torch.round(front.float() / blocks["s_in"]).clamp_(0, 127).to(torch.int8)
         h = h.contiguous()

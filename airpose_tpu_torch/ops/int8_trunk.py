@@ -34,8 +34,8 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch.nn import functional as F
-from torch.profiler import record_function
 
+from ..utils.profiling import span
 from . import _build
 from .fused_bottleneck import fold_bn_into_conv
 from .int8_conv import int8_conv, int8_conv_reference, quantize
@@ -181,10 +181,10 @@ def resnet50_int8_infer(qparams: Dict, x: torch.Tensor, act_scales: Optional[Dic
             return None
         return act_scales["layer{}_{}/conv1".format(*order[i + 1])]
 
-    with record_function("stem"):
+    with span("stem"):
         h = int8_stem(qparams["stem"], x)
 
-    with record_function("int8_layers"):
+    with span("int8_layers"):
         # the static path's per-conv multipliers xs·ws, in one launch
         convs = [(f"layer{st}_{blk}", key) for st, blk in order if fused and st in int8_stages
                  for key in ("proj", "conv1", "conv2", "conv3") if key in qparams[f"layer{st}_{blk}"]]

@@ -14,10 +14,10 @@ bench.py:109-125):
   4. SMPL-X forward (10,475 vertices, 127 joints), skinned by the kernel;
   5. cam_frame_and_project.
 
-Each stage runs inside a ``torch.profiler.record_function`` span (trunk,
+Each stage runs inside a profiler span (``utils.profiling.span``: trunk,
 ief, smplx, project, and the trunk's own spans inside it), which
-``profile_chain.py`` reads; without an active profiler a span costs a few
-microseconds of host time.
+``profile_chain.py`` reads; without an active profiler a span is one flag
+check.
 """
 
 from functools import partial
@@ -25,7 +25,6 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from . import constants as C
 from . import resolve_device
@@ -37,6 +36,7 @@ from .ops.int8_bottleneck import quantize_trunk_blocks, resnet50_int8_block_infe
 from .ops.int8_trunk import (calibrate_act_scales, quantize_trunk_params,
                              resnet50_int8_infer)
 from .train.losses import cam_frame_and_project
+from .utils.profiling import span
 
 TRUNKS = ("bf16", "int8", "int8_block")
 
@@ -83,14 +83,14 @@ def perceive(
     prepares the bf16 trunk at the call."""
     B = images.shape[0]
     features = features or chain_ops(model, "bf16")
-    with record_function("trunk"):
+    with span("trunk"):
         xf = features(images.reshape((B * 2,) + images.shape[2:]),
                       use_kernels=use_kernels).reshape(B, 2, -1)
-    with record_function("ief"):
+    with span("ief"):
         out = model.from_features(xf, bb, init_position)
         trans = out.pose[..., :3] / C.TRANS_SCALE
         rotmat = rot6d_to_rotmat(out.pose[..., 3:].reshape(B, 2, 22, 6))
-    with record_function("smplx"):
+    with span("smplx"):
         eye = torch.eye(3, dtype=rotmat.dtype, device=rotmat.device).expand(B * 2, 1, 3, 3)
         body = smplx_forward(
             smplx_params,
@@ -99,7 +99,7 @@ def perceive(
             global_orient=eye,
             use_kernels=use_kernels,
         )
-    with record_function("project"):
+    with span("project"):
         joints = body.joints.reshape(B, 2, -1, 3)
         verts = body.vertices.reshape(B, 2, -1, 3)
         _, j2d = cam_frame_and_project(rotmat[:, :, 0], trans, joints, intr,

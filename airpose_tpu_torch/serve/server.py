@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 
 from .. import resolve_device
+from ..utils.profiling import span
 from . import protocol as P
 from .staged import StagedRegressor, state_to_wire, wire_to_peer
 
@@ -52,7 +53,13 @@ class AirPoseServer:
         in-flight semantics where the peer tensor is one round stale) or,
         before any peer contact, to the mean-parameter state step1 already
         assumes. A slow/disconnected peer degrades accuracy, never stalls
-        the pipeline.
+        the pipeline;
+      * a peer that has passed a frame is not waited for: the peer serves
+        its camera's frames in order over one ordered link, so once a
+        message of a later frame arrives none will come for an earlier one
+        (the peer dropped it from its backlog). A frame dropped at one drone
+        so costs the other one degraded frame, not two peer timeouts during
+        which both drop every frame that arrives.
     """
 
     def __init__(self, regressor: StagedRegressor, robot_id: int,
@@ -66,6 +73,7 @@ class AirPoseServer:
         self._peer_msgs: dict = {}
         self._events: dict = {}
         self._latest_peer: dict = {}   # msg_type -> freshest data seen
+        self._peer_frame = -1          # frame of the peer's newest message on this link
         self._lock = asyncio.Lock()
         self.frames_dropped = 0
         self.peer_timeouts = 0
@@ -121,6 +129,11 @@ class AirPoseServer:
         self._peer_msgs[(msg_type, frame_id)] = data
         self._latest_peer[msg_type] = data
         self._events.setdefault((msg_type, frame_id), asyncio.Event()).set()
+        # the peer has passed every earlier frame: wake their waits now
+        self._peer_frame = frame_id
+        for (_, f), ev in self._events.items():
+            if f < frame_id:
+                ev.set()
         # prune messages for frames this server dropped (latest-frame-wins)
         # or whose wait already timed out — only a successful _wait_peer
         # pops, so without this both dicts grow forever in exactly the
@@ -133,11 +146,12 @@ class AirPoseServer:
             self._events.pop(k, None)
 
     async def _wait_peer(self, msg_type: int, frame_id: int):
-        """Wait for the peer's message for this frame; on timeout fall back
-        to the freshest earlier message of the same type (lag-one), else to
-        the mean-parameter peer state (None → caller uses means)."""
+        """Wait for the peer's message for this frame; on timeout, or once the
+        peer has passed the frame, fall back to the freshest message of the
+        same type (lag-one), else to the mean-parameter peer state (None →
+        caller uses means)."""
         key = (msg_type, frame_id)
-        if key not in self._peer_msgs:
+        if key not in self._peer_msgs and frame_id >= self._peer_frame:
             ev = self._events.setdefault(key, asyncio.Event())
             try:
                 await asyncio.wait_for(ev.wait(), self.peer_timeout)
@@ -191,6 +205,7 @@ class AirPoseServer:
         # lag-one fallback) would be consumed as the wrong frames' state.
         self._peer_msgs.clear()
         self._latest_peer.clear()
+        self._peer_frame = -1
         for ev in self._events.values():
             ev.set()  # wake waiters parked on old-link keys (they fall
         self._events.clear()  # back lag-one/mean, never a stale message)
@@ -282,56 +297,68 @@ class AirPoseServer:
             except RuntimeError:
                 pass  # loop already closed (GC-time teardown)
 
+    async def _device_call(self, fn, *args):
+        """``fn(*args)``, one round's device call, on the default executor.
+
+        Device calls run in the executor, NOT on the event loop: each call
+        blocks until its device→host copy, and meanwhile peer step messages
+        must keep draining (a blocked loop delays _note_peer and turns the
+        peer's wait into false lag-one degradation), and two co-hosted
+        servers (benchtest, localhost demos) can overlap their calls instead
+        of serializing the whole 6-call protocol. self._lock still
+        serializes calls per server (the first call's kernel build and the
+        int8 first-frame calibration mutate shared state)."""
+        async with self._lock:
+            with span("serve_executor"):
+                return await asyncio.get_running_loop().run_in_executor(None, fn, *args)
+
     async def _process_frame(self, writer, payload: bytes):
-        """The 3-round protocol for one frame (SURVEY.md §3.5)."""
+        """The 3-round protocol for one frame (SURVEY.md §3.5).
+
+        Under a profiler that records this thread, the frame is a
+        ``serve_frame`` span from the decoded payload to the drained result;
+        inside it each round's executor call is a ``serve_executor`` span
+        (submitted → result back on the loop; the executor thread's
+        ``staged_step`` lies inside it) and each peer wait a
+        ``serve_peer_wait`` span, timeouts included. Two servers in one
+        process share the loop thread, so their spans overlap there."""
         _, frame_id, bb, init_trans, img = P.decode_image(payload)
+        with span("serve_frame"):
+            # Pin the crop shape to the first served frame: a client
+            # streaming varying legal dims would make every frame allocate
+            # and tune for a new shape while holding self._lock, stalling
+            # BOTH drones' serving. A legitimate deployment uses one fixed
+            # crop size per flight.
+            if self._img_shape is None:
+                self._img_shape = img.shape
+            elif img.shape != self._img_shape:
+                raise P.ProtocolError(
+                    f"IMAGE shape {img.shape} differs from this server's "
+                    f"pinned shape {self._img_shape}")
 
-        # Pin the crop shape to the first served frame: a client streaming
-        # varying legal dims would make every frame allocate and tune for a
-        # new shape while holding self._lock, stalling BOTH drones' serving.
-        # A legitimate deployment uses one fixed crop size per flight.
-        if self._img_shape is None:
-            self._img_shape = img.shape
-        elif img.shape != self._img_shape:
-            raise P.ProtocolError(
-                f"IMAGE shape {img.shape} differs from this server's "
-                f"pinned shape {self._img_shape}")
+            # Round 1: trunk + IEF iter 1 (mean peer), publish step1. The raw
+            # uint8 crop goes straight to the device and is normalized there
+            # (4× smaller upload; staged.py).
+            state = await self._device_call(self.reg.step1, img[None], bb[None],
+                                            init_trans[None])
+            await self._send_peer(P.MSG_STEP1, frame_id, state_to_wire(state))
 
-        # Device calls run in the default executor, NOT on the event loop:
-        # each call blocks until its device→host copy, and meanwhile peer
-        # step messages must keep draining (a blocked loop delays
-        # _note_peer and turns the peer's wait into false lag-one
-        # degradation), and two co-hosted servers (benchtest, localhost
-        # demos) can overlap their calls instead of serializing the whole
-        # 6-call protocol. self._lock still serializes calls per server
-        # (the first call's kernel build and the int8 first-frame
-        # calibration mutate shared state).
-        loop = asyncio.get_running_loop()
+            # Round 2: peer step1 → iter 2, publish step2.
+            with span("serve_peer_wait"):
+                data = await self._wait_peer(P.MSG_STEP1, frame_id)
+            art, shape = self._peer_art_shape(data)
+            state = await self._device_call(self.reg.step23, state, bb[None], art[None],
+                                            shape[None])
+            await self._send_peer(P.MSG_STEP2, frame_id, state_to_wire(state))
 
-        # Round 1: trunk + IEF iter 1 (mean peer), publish step1. The raw
-        # uint8 crop goes straight to the device and is normalized there
-        # (4× smaller upload; staged.py).
-        async with self._lock:
-            state = await loop.run_in_executor(
-                None, self.reg.step1, img[None], bb[None], init_trans[None])
-        await self._send_peer(P.MSG_STEP1, frame_id, state_to_wire(state))
-
-        # Round 2: peer step1 → iter 2, publish step2.
-        art, shape = self._peer_art_shape(
-            await self._wait_peer(P.MSG_STEP1, frame_id))
-        async with self._lock:
-            state = await loop.run_in_executor(
-                None, self.reg.step23, state, bb[None], art[None], shape[None])
-        await self._send_peer(P.MSG_STEP2, frame_id, state_to_wire(state))
-
-        # Round 3: peer step2 → iter 3, return the 145-float result.
-        art, shape = self._peer_art_shape(
-            await self._wait_peer(P.MSG_STEP2, frame_id))
-        async with self._lock:
-            state = await loop.run_in_executor(
-                None, self.reg.step23, state, bb[None], art[None], shape[None])
-        writer.write(P.encode_step(P.MSG_RESULT, frame_id, state_to_wire(state)))
-        await writer.drain()
+            # Round 3: peer step2 → iter 3, return the 145-float result.
+            with span("serve_peer_wait"):
+                data = await self._wait_peer(P.MSG_STEP2, frame_id)
+            art, shape = self._peer_art_shape(data)
+            state = await self._device_call(self.reg.step23, state, bb[None], art[None],
+                                            shape[None])
+            writer.write(P.encode_step(P.MSG_RESULT, frame_id, state_to_wire(state)))
+            await writer.drain()
         self.frames_served += 1
         self._maybe_log_stats()
         if self.max_frames is not None and self.frames_served >= self.max_frames:

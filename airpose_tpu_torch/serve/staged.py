@@ -17,7 +17,8 @@ Each round is one upload, the device work and one device→host copy of the
 new pose and shape; the trunk features stay on the device between rounds.
 The server calls ``step1``/``step23`` from executor threads, where grad
 mode is not the caller's (it is thread-local), so each method enters
-``torch.inference_mode`` itself.
+``torch.inference_mode`` itself. Each call is one ``staged_step`` profiler
+span (``utils.profiling.span``), the upload to the copy back.
 """
 
 from typing import NamedTuple, Tuple
@@ -28,6 +29,7 @@ import torch
 from .. import constants as C
 from .. import resolve_device
 from ..models.airpose import _regress_step, mean_init_state
+from ..utils.profiling import span
 from .protocol import pack_params, unpack_params
 
 
@@ -132,7 +134,7 @@ class StagedRegressor:
         normalized on the device) or already-normalized float; bb (B,3);
         init_trans (B,3) unscaled. Runs trunk + IEF iter 1 against the
         mean peer state."""
-        with torch.inference_mode():
+        with span("staged_step"), torch.inference_mode():
             x = self._normalize(torch.tensor(np.asarray(image), device=self.device))
             host = np.concatenate([np.asarray(bb, np.float32),
                                    np.asarray(init_trans, np.float32)], axis=-1)
@@ -152,12 +154,12 @@ class StagedRegressor:
         """One further IEF iteration with an explicit peer state (used for
         both step2 and step3); the trunk features stay on the device."""
         B = state.xf.shape[0]
-        host = np.concatenate([
-            np.broadcast_to(np.asarray(bb, np.float32), (B, 3)),
-            np.asarray(state.pose, np.float32), np.asarray(state.shape, np.float32),
-            np.broadcast_to(np.asarray(peer_art, np.float32), (B, 126)),
-            np.broadcast_to(np.asarray(peer_shape, np.float32), (B, 10))], axis=-1)
-        with torch.inference_mode():
+        with span("staged_step"), torch.inference_mode():
+            host = np.concatenate([
+                np.broadcast_to(np.asarray(bb, np.float32), (B, 3)),
+                np.asarray(state.pose, np.float32), np.asarray(state.shape, np.float32),
+                np.broadcast_to(np.asarray(peer_art, np.float32), (B, 126)),
+                np.broadcast_to(np.asarray(peer_shape, np.float32), (B, 10))], axis=-1)
             bb_d, pose, shape, art, pshape = torch.from_numpy(host).to(self.device).split(
                 (3, 135, 10, 126, 10), dim=-1)
             new_pose, new_shape = _regress_step(self._core, state.xf, bb_d, pose, shape,

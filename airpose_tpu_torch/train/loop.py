@@ -20,16 +20,15 @@ takes its rows of the batch (``parallel.shard_batch``), BatchNorm and the
 row-weighted means reduce over the data group, the gradients and metrics are
 averaged over it, and AMSGrad then runs on every rank alike. Without one (or
 at world size 1) a step is what it is in one process.
-The train step's parts run inside ``record_function`` spans (forward,
-backward, optimizer) that a profiler reads; without one a span costs a few
-microseconds of host time.
+The train step's parts run inside profiler spans (``utils.profiling.span``:
+forward, backward, optimizer); without an active profiler a span is one
+flag check.
 """
 
 from typing import Dict, Optional
 
 import torch
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from .. import resolve_device
 from ..bodymodel.smplx import SMPLXParams
@@ -37,6 +36,7 @@ from ..bodymodel.vposer import VPoserParams
 from ..config import TrainConfig
 from ..geometry.rotations import rot6d_to_rotmat
 from ..parallel.mesh import all_reduce_mean, data_parallel
+from ..utils.profiling import span
 from . import losses as L
 from .state import AMSGrad, TrainState
 
@@ -120,16 +120,16 @@ def _step_fns(model: torch.nn.Module, cfg: TrainConfig, tx: AMSGrad, dev: torch.
         check_device(batch)
         names = list(state.opt_state["mu"])
         with data_parallel(mesh):
-            with record_function("forward"):
+            with span("forward"):
                 in_trans = train_trans(batch, cfg, generator)
                 out = forward(state, batch, in_trans, True, generator)
                 total, metrics = loss_from_out(out, batch, generator)
-            with record_function("backward"):
+            with span("backward"):
                 grads = torch.autograd.grad(total, [state.params[n] for n in names])
                 if mesh is not None:
                     grads = all_reduce_mean(grads, mesh)
                     metrics = reduced({k: v.detach() for k, v in metrics.items()})
-        with record_function("optimizer"):
+        with span("optimizer"):
             tx.update(dict(zip(names, grads)), state.opt_state, state.params)
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}

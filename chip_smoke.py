@@ -1106,9 +1106,8 @@ def phase_train(dev):
     log(f"eval_step: loss {metrics['loss'].item():.1f}, pred_rotmat "
         f"{tuple(preds['pred_rotmat'].shape)}")
 
-    # the step's time, then its parts: loop.py's record_function spans, each
-    # also bracketed by two CUDA events (the name loop.py calls is replaced
-    # here only)
+    # the step's time, then its parts: loop.py's spans, each also bracketed
+    # by two CUDA events (the name loop.py calls is replaced here only)
     step_ms = wall_ms(lambda: train_step(state, batch, gen), iters=10, warmup=2)
     marks = []
 
@@ -1122,7 +1121,7 @@ def phase_train(dev):
         marks.append((name, *ev))
 
     n_spans = 5
-    with mock.patch.object(loop, "record_function", event_span):
+    with mock.patch.object(loop, "span", event_span):
         for _ in range(n_spans):
             train_step(state, batch, gen)
     torch.cuda.synchronize()

@@ -171,14 +171,12 @@ def test_tools_import_neither_jax_cv2_nor_h5py():
 
 def test_tool_clis_raise_without_cuda(tmp_path):
     """create_aerialpeople, the dress rehearsal, train_roofline,
-    qat_posture, to_hdf5 and the profiling StepTimer take the card unless
-    given --platform cpu (device="cpu"): without CUDA each raises before it
-    writes anything."""
+    qat_posture and to_hdf5 take the card unless given --platform cpu
+    (device="cpu"): without CUDA each raises before it writes anything."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     from airpose_tpu_torch.tools import (create_aerialpeople, dress_rehearsal, qat_posture,
                                          to_hdf5, train_roofline)
-    from airpose_tpu_torch.utils.profiling import StepTimer
 
     missing = str(tmp_path / "missing")
     for main, argv in (
@@ -189,8 +187,6 @@ def test_tool_clis_raise_without_cuda(tmp_path):
             (to_hdf5.main, ["--datapath", missing, "--out", missing])):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(argv)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        StepTimer()
     assert not (tmp_path / "missing").exists()
 
 

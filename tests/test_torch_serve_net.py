@@ -13,6 +13,7 @@ crops are within one uint8 step of the eval pipeline's)."""
 import asyncio
 import contextlib
 import io
+import json
 import os
 import shutil
 import socket
@@ -183,6 +184,69 @@ def test_two_servers_over_tcp_match_fused(model, rng):
         np.testing.assert_allclose(data[13:], fused.pose[0, v, 3:].numpy(), atol=1e-5, rtol=0)
 
 
+def test_served_frame_spans(model, rng, tmp_path):
+    """Three frames through two servers under ``utils.profiling.trace``:
+    each drone-frame opens one ``serve_frame``, three ``serve_executor``,
+    three ``staged_step`` and two ``serve_peer_wait`` spans; the loop-side
+    spans lie inside their frame's ``serve_frame``, and each
+    ``staged_step`` (the executor thread) inside a ``serve_executor``."""
+    from airpose_tpu_torch.utils.profiling import trace
+
+    ports = benchtest._free_ports(2)
+    loop, t, _ = start_loop(
+        lambda: S.run_server(StagedRegressor(model, device="cpu"), 1, ports[0],
+                             peer_port=ports[1]),
+        lambda: S.run_server(StagedRegressor(model, device="cpu"), 2, ports[1],
+                             peer_port=ports[0]))
+    imgs = [[image(rng) for _ in (0, 1)] for _ in range(3)]
+    errors = []
+
+    def client(v, frame_id):
+        try:
+            client_request(ports[v], frame_id, imgs[frame_id][v])
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    try:
+        with trace(str(tmp_path)):
+            for frame_id in range(3):
+                threads = [threading.Thread(target=client, args=(v, frame_id)) for v in (0, 1)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=120)
+                assert not any(th.is_alive() for th in threads)
+    finally:
+        stop_loop(loop, t)
+    assert not errors, errors
+
+    with open(tmp_path / "trace.json") as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    spans = {name: sorted((e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
+                          if e["name"] == name)
+             for name in ("serve_frame", "serve_executor", "staged_step", "serve_peer_wait")}
+    frames = spans["serve_frame"]
+    assert len(frames) == 6 and len({tid for *_, tid in frames}) == 1
+
+    def inside(iv, outer):
+        return [o for o in outer if o[0] <= iv[0] and iv[1] <= o[1]]
+
+    # the frames ran one after another, each on both drones at once
+    for k in range(3):
+        pair = frames[2 * k:2 * k + 2]
+        lo, hi = min(a for a, *_ in pair), max(b for _, b, _ in pair)
+        held = {name: [iv for iv in ivs if lo <= iv[0] and iv[1] <= hi]
+                for name, ivs in spans.items()}
+        assert {name: len(v) for name, v in held.items()} == {
+            "serve_frame": 2, "serve_executor": 6, "staged_step": 6, "serve_peer_wait": 4}
+        for name in ("serve_executor", "serve_peer_wait"):
+            assert all(iv[2] == frames[0][2] and inside(iv, pair) for iv in held[name])
+        assert all(iv[2] != frames[0][2] and inside(iv, held["serve_executor"])
+                   for iv in held["staged_step"])
+    assert sum(len(v) for v in spans.values()) == 6 + 18 + 18 + 12
+
+
 def test_degraded_single_server_serves_with_mean_peer(reg, rng):
     """With no peer connected the server answers with the mean-parameter
     peer in rounds 2 and 3 instead of stalling."""
@@ -312,6 +376,31 @@ def test_peer_frame_id_restart_drops_stale_entries(reg):
     assert (P.MSG_STEP1, 5000) not in srv._peer_msgs
     assert (P.MSG_STEP1, 4999) not in srv._peer_msgs
     assert (P.MSG_STEP1, 0) in srv._peer_msgs
+
+
+def test_wait_peer_skips_frames_the_peer_passed(reg):
+    """The peer serves its frames in order: a message of a later frame ends
+    a wait for an earlier one at once (the peer dropped that frame) with the
+    freshest message, and a wait for a frame the peer has passed does not
+    start; a frame ahead of the peer still waits out the timeout."""
+    srv = S.AirPoseServer(reg, robot_id=1, peer_timeout=30.0)
+    old, new = np.zeros(145, np.float32), np.ones(145, np.float32)
+
+    async def drive():
+        srv._note_peer(P.MSG_STEP1, 4, old)
+        parked = asyncio.ensure_future(srv._wait_peer(P.MSG_STEP1, 5))
+        await asyncio.sleep(0.05)
+        assert not parked.done()
+        srv._note_peer(P.MSG_STEP1, 6, new)
+        woken = await asyncio.wait_for(parked, 5)
+        passed = await asyncio.wait_for(srv._wait_peer(P.MSG_STEP2, 5), 5)
+        srv.peer_timeout = 0.1
+        ahead = await srv._wait_peer(P.MSG_STEP1, 7)
+        return woken, passed, ahead
+
+    woken, passed, ahead = asyncio.run(drive())
+    assert woken is new and passed is None and ahead is new
+    assert srv.peer_timeouts == 1
 
 
 def test_new_peer_link_clears_previous_runs_state(reg):

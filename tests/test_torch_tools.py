@@ -687,18 +687,39 @@ def test_train_roofline_remat_keeps_batchnorm_statistics():
 # ---- utils/profiling -------------------------------------------------------------
 
 def test_profiling(tmp_path):
-    from airpose_tpu_torch.utils.profiling import StepTimer, sync, trace
+    from airpose_tpu_torch.utils.profiling import sync, trace
 
-    timer = StepTimer(window=2, device="cpu")
-    for _ in range(3):
-        timer.start()
-        out = {"a": [torch.ones(3) * 2], "b": None}
-        assert timer.stop(out) > 0
-    assert len(timer.times) == 2
-    assert set(timer.stats()) == {"mean_s", "p50_s", "p95_s", "steps_per_s"}
+    out = {"a": [torch.ones(3) * 2], "b": None}
     assert sync(out) == 2.0 and sync({}) == 0.0
     with trace(str(tmp_path / "tr")) as prof:
         torch.randn(64, 64) @ torch.randn(64, 64)
     assert any(e.name == "aten::mm" for e in prof.events())
     with open(tmp_path / "tr" / "trace.json") as f:
         assert json.load(f)["traceEvents"]
+
+
+def test_span_is_one_flag_check_without_profiler(monkeypatch):
+    """With no profiler recording, every span is the one shared null context
+    and enters no record_function; under the profiler each is a
+    ``record_function`` that the trace holds by its name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from airpose_tpu_torch.utils import profiling
+
+    entered = []
+    real = profiling.record_function
+
+    def counted(name):
+        entered.append(name)
+        return real(name)
+
+    monkeypatch.setattr(profiling, "record_function", counted)
+    assert profiling.span("a") is profiling.span("b")
+    with profiling.span("a"):
+        torch.ones(2) + 1
+    assert entered == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("a"):
+            torch.ones(2) + 1
+    assert entered == ["a"]
+    assert [e.name for e in prof.events() if e.name == "a"] == ["a"]
