@@ -91,7 +91,8 @@ class AirPoseServer:
         # operational visibility (the reference's ROS nodes log status
         # continuously): every N served frames print the real-time health
         # counters — served/dropped/degraded tell a flight operator
-        # whether the pipeline is keeping up and the peer link is alive
+        # whether the pipeline is keeping up and the peer link is alive,
+        # the share of rounds replayed as CUDA graphs whether it runs warm
         self.log_every = log_every
         self._t0 = None
 
@@ -102,9 +103,11 @@ class AirPoseServer:
         rate = ("" if self._t0 is None else
                 f" rate={self.log_every / max(now - self._t0, 1e-9):.2f} fps")
         self._t0 = now
+        calls = self.reg.graph_replays + self.reg.eager_calls
         print(f"[robot {self.robot_id}] served={self.frames_served} "
               f"dropped={self.frames_dropped} "
-              f"peer_timeouts={self.peer_timeouts}{rate}",
+              f"peer_timeouts={self.peer_timeouts} "
+              f"graph_replays={self.reg.graph_replays / max(calls, 1):.1%}{rate}",
               flush=True)
 
     # ---- peer message bookkeeping ----
@@ -473,7 +476,8 @@ def main(argv=None):
                         help="serve this many frames, then exit cleanly "
                              "(bounded demo/test runs; default: forever)")
     parser.add_argument("--log-every", type=int, default=0,
-                        help="print served/dropped/peer-timeout counters and "
+                        help="print served/dropped/peer-timeout counters, "
+                             "the share of rounds replayed as CUDA graphs and "
                              "the recent serve rate every N frames "
                              "(operational health; default: off)")
     parser.add_argument("--peer-timeout", type=float, default=10.0,

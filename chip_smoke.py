@@ -136,8 +136,11 @@ Phases, each of which exits non-zero on failure:
      wire against the fused forward (f32 copenet_twoview, seed-0
      copenet_twoview_sep by sep_view), and with the int8 trunk against
      Int8Inference's trunk on the same scales at the served 1 crop a call and
-     the fused IEF (features equal, 52 int8 conv launches a step-1 call and
-     the calibration's and clip report's); (b) the 52 int8
+     the fused IEF (features equal), each round a CUDA graph replay against
+     the same rounds run eagerly (int8 features equal, wire floats within
+     GRAPH_WIRE_ATOL), the int8 conv's host counter advancing only at the
+     eager step-1 call (its calibration, clip report and step) and at the
+     capture, 4 × 52, and graph_replays counting every later round; (b) the 52 int8
      convs of one step-1 call at 1 crop exact against the plain version,
      skinning at B = 1, each timed, and each round's wall time and device
      work; (c) run_benchtest, two in-process servers over localhost TCP, f32
@@ -342,6 +345,9 @@ BA_SMALL, BA_CPU_RTOL = 24, 1e-3
 # against the f32 offline forward as loosely as test_staged_int8_close_to_bf16
 # (mean |Δ| < 0.2 × the pose's rms); lag-one on a static scene :659-660's.
 STAGED_ATOL_F32, STAGED_ATOL_INT8 = 1e-4, 2e-3
+# A replayed round against the same round run eagerly: the same kernels on
+# the same data (cuBLAS may pick another gemv under capture).
+GRAPH_WIRE_ATOL = 1e-6
 SERVED_DIFF, SERVED_ROI_DIFF, SERVED_INT8_RMS = 1e-3, 2e-2, 0.2
 LAGONE_STATIC = 1e-6
 NATIVE_FAKE_FRAMES, VIZ_FRAMES = 4, 3
@@ -2548,20 +2554,27 @@ def phase_eval(dev, tmp, card):
             "part_seconds": seconds}, at_b2000
 
 
-def staged_rounds(regs, u8, bb):
+def staged_rounds(regs, u8, bb, eager=False):
     """The 3 rounds a frame with same-frame peer messages, one crop a call:
-    (pose (n, 2, 135), betas (n, 2, 10), step-1 features (n, 2, 2048))."""
+    (pose (n, 2, 135), betas (n, 2, 10), step-1 features (n, 2, 2048)).
+    ``eager`` forgets the regressors' rounds before each call, so that every
+    call is the first of its shape and runs eagerly."""
     from airpose_tpu_torch.serve.staged import state_to_wire, wire_to_peer
+
+    def call(reg, method, *args):
+        if eager:
+            reg._rounds.clear()
+        return getattr(reg, method)(*args)
 
     init = np.asarray([[0.0, 0.0, 10.0]], np.float32)
     pose, betas, feats = [], [], []
     for f in range(len(u8)):
-        states = [regs[v].step1(u8[f, v][None], bb[f, v][None], init) for v in (0, 1)]
+        states = [call(regs[v], "step1", u8[f, v][None], bb[f, v][None], init) for v in (0, 1)]
         feats.append(torch.stack([s.xf[0] for s in states]))
         for _ in range(2):
             wires = [state_to_wire(s) for s in states]
-            states = [regs[v].step23(states[v], bb[f, v][None],
-                                     *(a[None] for a in wire_to_peer(wires[1 - v])))
+            states = [call(regs[v], "step23", states[v], bb[f, v][None],
+                           *(a[None] for a in wire_to_peer(wires[1 - v])))
                       for v in (0, 1)]
         pose.append(np.stack([s.pose[0] for s in states]))
         betas.append(np.stack([s.shape[0] for s in states]))
@@ -2594,6 +2607,10 @@ def serving_staged(dev, model, u8, bb):
             f"{diff:.3e} (atol {STAGED_ATOL_F32})")
         check(diff <= STAGED_ATOL_F32, f"staged {name} disagrees with the fused forward: {diff}")
         out[name] = {"max_abs_diff": float(diff)}
+        if not sep:
+            eager = StagedRegressor(m, device=dev)
+            out[name]["graph_vs_eager"] = graph_vs_eager(
+                name, (pose, betas), staged_rounds([eager, eager], u8, bb, eager=True), regs, n)
         del m, regs
 
     # int8: one regressor for both views (one calibration table, on frame 0
@@ -2604,12 +2621,22 @@ def serving_staged(dev, model, u8, bb):
     pose, betas, feats = staged_rounds([reg, reg], u8, bb)
     torch.cuda.synchronize()
     launches = kernel_counts()
-    want = (2 * n + 2) * 52  # 52 a step-1 call, and calibration's and the clip report's
+    # the host counters advance where the rounds' Python runs: the first
+    # step-1 call (calibration, clip report, the step) and the capture;
+    # every later step-1 call is a replay, which graph_replays counts
+    want = 4 * 52
     log(f"staged int8 ({n} frames × 2 views): launches {launches}, expected int8_conv {want}")
     check(launches == {"lbs_skinning": 0, "fused_stage1": 0, "int8_conv": want,
                        "int8_stem": want // 52},
           f"staged int8 launches {launches}, expected {want} int8 conv launches and "
           f"{want // 52} stem launches only")
+    eager = StagedRegressor(model, int8=True, device=dev)
+    eager._qp, eager._act_scales = reg._qp, reg._act_scales
+    eager_rounds = staged_rounds([eager, eager], u8, bb, eager=True)
+    graph_eager = graph_vs_eager("int8", (pose, betas), eager_rounds, [reg], n)
+    feat_graph = (eager_rounds[2] - feats).abs().max().item()
+    log(f"staged int8 step-1 features, replayed against eager: max |diff| {feat_graph} (exact)")
+    check(feat_graph == 0.0, f"replayed int8 features differ from eager ones: {feat_graph}")
     # the fused forward: Int8Inference's trunk at the served shape (1 crop a
     # call; cuDNN's bf16 stem rounds differently at other batch sizes, and
     # the int8 quantization carries that on), then the fused 3-step IEF
@@ -2634,8 +2661,25 @@ def serving_staged(dev, model, u8, bb):
     check(diff <= STAGED_ATOL_INT8, f"staged int8 disagrees with Int8Inference: {diff}")
     out["int8"] = {"feature_max_abs_diff": feat_diff, "max_abs_diff": float(diff),
                    "folded_feature_max_abs_diff": folded_feat,
-                   "folded_max_abs_diff": float(folded_diff), "launches": launches["int8_conv"]}
+                   "folded_max_abs_diff": float(folded_diff), "launches": launches["int8_conv"],
+                   "graph_vs_eager": {**graph_eager, "feature_max_abs_diff": feat_graph}}
     return out, reg
+
+
+def graph_vs_eager(name, replayed, eager, regs, n):
+    """The rounds replayed as CUDA graphs (``replayed``: pose and betas of
+    ``staged_rounds``) against the same rounds run eagerly, and the replays
+    counted: of one regressor a view, the first step-1 and step23 calls
+    eager and every later one a replay; one regressor for both views, twice
+    as many replays."""
+    diff = max(np.abs(replayed[0] - eager[0]).max(), np.abs(replayed[1] - eager[1]).max())
+    calls = [(r.eager_calls, r.graph_replays) for r in regs]
+    want = [(2, 6 * n - 2)] if len(regs) == 1 else [(2, 3 * n - 2)] * len(regs)
+    log(f"staged {name}, replayed rounds against eager: pose and betas max |diff| {diff:.3e} "
+        f"(atol {GRAPH_WIRE_ATOL}); (eager calls, graph replays) {calls}, expected {want}")
+    check(diff <= GRAPH_WIRE_ATOL, f"staged {name}: replayed rounds differ from eager: {diff}")
+    check(calls == want, f"staged {name}: (eager calls, graph replays) {calls}, expected {want}")
+    return {"max_abs_diff": float(diff), "eager_calls_graph_replays": calls}
 
 
 def serving_kernels(dev, reg, crop):
@@ -2884,7 +2928,9 @@ def phase_serving(dev, tmp, card):
     check(all(served["int8"][f"pose_{m}"] < SERVED_INT8_RMS * pose_rms[v]
               for v, m in enumerate(("m1", "m2"))),
           f"--int8 served pose beyond {SERVED_INT8_RMS} × rms {pose_rms}: {served['int8']}")
-    want = 2 * (len(u8) + 2) * 52  # two servers: 52 a frame, calibration and clip report once
+    # two servers, each: 52 at calibration, the clip report, the eager first
+    # step-1 call and its capture; the later frames replay the graph
+    want = 2 * 4 * 52
     check(served["f32"]["launches"] == {"lbs_skinning": 0, "fused_stage1": 0, "int8_conv": 0,
                                         "int8_stem": 0},
           f"f32 serving launched kernels: {served['f32']['launches']}")
@@ -2892,7 +2938,8 @@ def phase_serving(dev, tmp, card):
                                          "int8_stem": want // 52},
           f"--int8 serving launches {served['int8']['launches']}, expected {want} int8 conv")
     log(f"--int8 served pose rms of the f32 forward {pose_rms.tolist()}; int8 conv launches "
-        f"{want} = 2 servers × ({len(u8)} frames + calibration + clip report) × 52")
+        f"{want} = 2 servers × (calibration + clip report + first frame + capture) × 52; "
+        f"the other {len(u8) - 2} frames replay")
     out["served"] = served
     seconds["13c"], t = time.perf_counter() - t, time.perf_counter()
 
@@ -3926,8 +3973,9 @@ def main():
         name: v["int8_conv_launches"] for name, v in passes.items()
         if isinstance(v, dict) and v.get("int8_conv_launches")}
     # launches on phase 13's path, each counted in its run: skinning once a
-    # message the viz CLI renders; the int8 conv 52 times a step-1 call (one
-    # crop), and once more per server in calibration and the clip report
+    # message the viz CLI renders; the int8 conv 52 times at a regressor's
+    # calibration, clip report, eager first step-1 call and capture (the
+    # host counter does not see graph replays)
     n13 = phase13["frames"]
     kernels[0]["phase13_launches"] = {
         f"viz CLI, {VIZ_FRAMES} served messages": phase13["viz"]["skinning_launches"]}
