@@ -1,4 +1,5 @@
 from .cuda_lbs import skinning, skinning_reference
+from .smpl import SMPLOutput, SMPLParams, smpl_forward, synthetic_smpl_params
 from .smplx import (
     SMPLXOutput,
     SMPLXParams,
@@ -19,6 +20,8 @@ from .vposer import (
 )
 
 __all__ = [
+    "SMPLOutput",
+    "SMPLParams",
     "SMPLXOutput",
     "SMPLXParams",
     "VPoserParams",
@@ -28,8 +31,10 @@ __all__ = [
     "load_smplx_npz",
     "skinning",
     "skinning_reference",
+    "smpl_forward",
     "smplx_forward",
     "smplx_params_from_numpy",
+    "synthetic_smpl_params",
     "synthetic_smplx_params",
     "vposer_decode",
     "vposer_encode",

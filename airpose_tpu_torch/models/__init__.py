@@ -1,8 +1,12 @@
+from typing import Optional
+
 import torch
 
 from .. import resolve_device
 from .airpose import (HMR, AirPoseTwoView, AirPoseTwoViewSep, AirPoseTwoViewSepView,
                       FullCamOutput, MuHMR, SingleViewFullCam, WeakCamOutput, mean_init_state)
+from .hmr2 import CROP as HMR2_CROP
+from .hmr2 import HMR2, HMR2Output
 from .regressor import RegressorCore, load_mean_params
 from .resnet import Bottleneck, ResNet50
 
@@ -12,17 +16,21 @@ MODEL_REGISTRY = {
     "muhmr": MuHMR,
     "copenet_twoview": AirPoseTwoView,
     "copenet_twoview_sep": AirPoseTwoViewSep,
+    "hmr2": HMR2,
 }
 
 
-def family_init_args(family: str, batch_size: int = 1, img_res: int = 224, device=None):
+def family_init_args(family: str, batch_size: int = 1, img_res: Optional[int] = None,
+                     device=None):
     """Each family's positional forward arguments, as tensors on ``device``
     (CUDA by default): zero images, zero ``bb`` and ``init_position`` 0.5
-    where the family takes them, as the JAX package's table has them."""
+    where the family takes them, as the JAX package's table has them.
+    ``img_res`` defaults to the family's crop: 256 for hmr2, else 224."""
     dev = resolve_device(device)
     B = batch_size
+    img_res = img_res or (HMR2_CROP if family == "hmr2" else 224)
     img = torch.zeros((B, 2, img_res, img_res, 3), device=dev)
-    if family == "hmr":
+    if family in ("hmr", "hmr2"):
         return (img[:, 0],)
     if family == "copenet_singleview":
         return (img[:, 0], torch.zeros((B, 3), device=dev), torch.full((B, 3), 0.5, device=dev))
@@ -34,6 +42,6 @@ def family_init_args(family: str, batch_size: int = 1, img_res: int = 224, devic
 
 
 __all__ = ["AirPoseTwoView", "AirPoseTwoViewSep", "AirPoseTwoViewSepView", "Bottleneck",
-           "FullCamOutput", "HMR", "MODEL_REGISTRY", "MuHMR", "RegressorCore", "ResNet50",
+           "FullCamOutput", "HMR", "HMR2", "HMR2Output", "MODEL_REGISTRY", "MuHMR", "RegressorCore", "ResNet50",
            "SingleViewFullCam", "WeakCamOutput", "family_init_args", "load_mean_params",
            "mean_init_state"]

@@ -18,6 +18,14 @@ Each stage runs inside a profiler span (``utils.profiling.span``: trunk,
 ief, smplx, project, and the trunk's own spans inside it), which
 ``profile_chain.py`` reads; without an active profiler a span is one flag
 check.
+
+``perceive_hmr2`` runs HMR 2.0 (models/hmr2.py) on the same batches: both
+drones' 256² crops folded into one batch and regressed one by one (the
+model has no exchange between views), 6D → rotmat, SMPL (6,890 vertices, 45
+joints) with the same skinning kernel, each crop's weak-perspective camera
+to a camera-frame translation, the same projection; its spans are ``vit``
+(``patch_embed``, ``vit_blocks`` inside), ``hmr2_head``, ``smpl`` and
+``project``.
 """
 
 from functools import partial
@@ -28,9 +36,11 @@ import torch
 
 from . import constants as C
 from . import resolve_device
+from .bodymodel.smpl import SMPLParams, smpl_forward
 from .bodymodel.smplx import SMPLXParams, smplx_forward, synthetic_smplx_params
 from .geometry.rotations import rot6d_to_rotmat
 from .models.airpose import AirPoseTwoView
+from .models.hmr2 import HMR2, pose_rotmats
 from .ops.fused_bottleneck import resnet50_fused_infer, stage1_params_from_state_dict
 from .ops.int8_bottleneck import quantize_trunk_blocks, resnet50_int8_block_infer
 from .ops.int8_trunk import (calibrate_act_scales, quantize_trunk_params,
@@ -105,6 +115,51 @@ def perceive(
         _, j2d = cam_frame_and_project(rotmat[:, :, 0], trans, joints, intr,
                                        C.FOCAL_LENGTH)
     return verts, j2d
+
+
+def cam_crop_to_full(cam: torch.Tensor, bb: torch.Tensor, intr: torch.Tensor,
+                     crop: int) -> torch.Tensor:
+    """HMR 2.0's ``cam_crop_to_full`` with a drone camera: a crop's weak-
+    perspective camera (s, tx, ty) (..., 3) → the body's translation in the
+    camera frame (..., 3). The crop box comes from ``bb`` = (box centre /
+    principal point − 1, crop / box side) and the focal length and principal
+    point from ``intr`` (..., 3, 3), where the published demo assumes a
+    focal length of 5000 / 256 of the image's larger side about its
+    centre."""
+    f, pp = intr[..., 0, 0], intr[..., :2, 2]
+    offset = bb[..., :2] * pp                   # box centre − principal point
+    bs = crop / bb[..., 2] * cam[..., 0] + 1e-9
+    return torch.stack([2 * offset[..., 0] / bs + cam[..., 1],
+                        2 * offset[..., 1] / bs + cam[..., 2], 2 * f / bs], dim=-1)
+
+
+@torch.no_grad()
+def perceive_hmr2(
+    model: HMR2,
+    smpl_params: SMPLParams,
+    images: torch.Tensor,         # (B, 2, S, S, 3)
+    bb: torch.Tensor,             # (B, 2, 3)
+    intr: torch.Tensor,           # (B, 2, 3, 3)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HMR 2.0 over both drones' crops → (vertices (B, 2, V, 3), j2d
+    (B, 2, 45, 2)). The vertices are SMPL's with the regressed root
+    rotation, before the translation; the 45 joints are projected from the
+    camera frame with ``intr``. Runs where its inputs are, as ``perceive``."""
+    B = images.shape[0]
+    x = images.reshape((B * 2,) + images.shape[2:])
+    with span("vit"):
+        tokens = model.backbone(model.crop_columns(x))
+    with span("hmr2_head"):
+        out = model.smpl_head(tokens)
+        rotmat = pose_rotmats(out.pose6d)
+    with span("smpl"):
+        body = smpl_forward(smpl_params, out.betas, rotmat[:, 1:], rotmat[:, :1])
+    with span("project"):
+        trans = cam_crop_to_full(out.cam.reshape(B, 2, 3), bb, intr, images.shape[2])
+        eye = torch.eye(3, dtype=trans.dtype, device=trans.device).expand(B, 2, 3, 3)
+        _, j2d = cam_frame_and_project(eye, trans, body.joints.reshape(B, 2, -1, 3), intr,
+                                       intr[..., [0, 1], [0, 1]])
+    return body.vertices.reshape(B, 2, -1, 3), j2d
 
 
 def build_perception(device=None, seed: int = 0, num_vertices: int = 10475,

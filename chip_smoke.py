@@ -187,6 +187,17 @@ Phases, each of which exits non-zero on failure:
      utils.cluster's local backend requeueing a 2-step trainer job through
      one exit 3, and parity_run on a fixture bundle made from phase 10's
      last.ckpt; each sub-phase's kernel launches counted.
+ 16. HMR 2.0 (models/hmr2.py, perception.perceive_hmr2) at its published
+     widths: the skinning kernel at SMPL's J = 24, V = 6,890 (B = 128)
+     against its plain version, timed; the attention guard (an input no fast
+     backend takes raises under models/vit.attention, and the chain's
+     attention kernels are the flash or memory-efficient ones); then the
+     chain on 64 two-view frames of 256² from the benchmark's weights maker
+     and inputs: 44 attention calls and 1 skinning launch a call, the tokens
+     and the tail against benchmark/reference/hmr2.py by the limits of the
+     cell perceive_hmr2_vith_b64, and two_view_fps from CUDA events.
+     ``python3 chip_smoke.py --only hmr2`` builds the kernels and runs this
+     phase alone.
 Prints the kernels as one JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when no CUDA device is available.
@@ -3825,6 +3836,93 @@ def phase_multidevice(dev, tmp, card):
     return out
 
 
+def phase_hmr2(dev, card):
+    """Phase 16: SMPL's skinning shape, the attention guard, and the HMR 2.0
+    chain at the published widths against the benchmark's reference."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from airpose_tpu_torch.bodymodel import cuda_lbs, synthetic_smpl_params
+    from airpose_tpu_torch.models import vit as vit_mod
+    from airpose_tpu_torch.perception import perceive_hmr2
+    from benchmark.drivers import worst_ray_angle, worst_row_cos_gap, worst_row_rel_l2
+    from benchmark.drivers.perceive_hmr2 import program_hmr2, program_smpl
+    from benchmark.inputs import perception_pool
+    from benchmark.reference import hmr2 as ref
+
+    out = {}
+    B, V, J = 128, 6890, 24
+    rng = np.random.default_rng(2)
+    rel = rng.normal(size=(B, J, 4, 4)).astype(np.float32) * 0.3
+    rel[:, :, 3] = [0, 0, 0, 1]
+    p = torch.from_numpy(rng.normal(size=(B, V, 3)).astype(np.float32)).to(dev)
+    w = synthetic_smpl_params().lbs_weights.to(dev)
+    out["skinning"] = skinning_at(w, torch.from_numpy(rel).to(dev), p)
+    out["skinning"]["resources"] = cuda_lbs.kernel_resources(J)
+
+    q = torch.randn(2, 16, 192, 80, device=dev, dtype=torch.float64)
+    try:
+        vit_mod.attention(q, q, q)
+        raised = False
+    except RuntimeError:
+        raised = True
+    check(raised, "models/vit.attention ran float64 inputs: the math backend was taken")
+
+    cfg = json.load(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark",
+                                      "configs", "hmr2_vith.json")))
+    limits = json.load(open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                         "benchmark", "workloads",
+                                         "perceive_hmr2_vith_b64.json")))["limits"]
+    model = program_hmr2(cfg, ref.make_state(cfg, 11, dev), dev)
+    body = ref.make_smpl(12, V, dev)
+    smpl = program_smpl(body)
+    b = perception_pool(13, 1, 64, cfg["crop"], dev)[0]
+    seen = {}
+    model.backbone.register_forward_hook(lambda m, a, o: seen.update(tokens=o))
+    calls, launches = model.attention_calls, cuda_lbs.launches
+    verts, j2d = perceive_hmr2(model, smpl, b["images"], b["bb"], b["intr"])
+    torch.cuda.synchronize()
+    out["attention_calls_a_call"] = model.attention_calls - calls
+    out["skinning_launches_a_call"] = cuda_lbs.launches - launches
+    check(out["attention_calls_a_call"] == 44, f"attention calls a call: {out}")
+    check(out["skinning_launches_a_call"] == 1, f"skinning launches a call: {out}")
+    check(bool(torch.isfinite(verts).all() and torch.isfinite(j2d).all()), "non-finite outputs")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        perceive_hmr2(model, smpl, b["images"], b["bb"], b["intr"])
+        torch.cuda.synchronize()
+    attn = sorted({e.key for e in prof.key_averages()
+                   if any(t in e.key.lower() for t in ("flash", "fmha", "efficient", "attention"))})
+    log(f"hmr2 attention kernels: {attn}")
+    check(any("flash" in k.lower() for k in attn) and any("fmha" in k.lower() or "efficient"
+                                                            in k.lower() for k in attn),
+          f"the chain's attention kernels are not the flash and memory-efficient ones: {attn}")
+    out["attention_kernels"] = attn
+    fps_ms = wall_ms(lambda: perceive_hmr2(model, smpl, b["images"], b["bb"], b["intr"]),
+                     iters=10, warmup=2)
+    out["call_ms"], out["two_view_fps"] = fps_ms, 64 / fps_ms * 1e3
+    tokens = seen["tokens"]
+    del model
+    torch.cuda.empty_cache()
+
+    sd = ref.make_state(cfg, 11, dev)
+    with torch.no_grad():
+        x = b["images"].flatten(0, 1)
+        rt = ref.backbone(sd, cfg, x)
+        tv, tj = ref.perceive_tail(sd, cfg, body, tokens.reshape(64, 2, *tokens.shape[1:]),
+                                   b["bb"], b["intr"], cfg["crop"])
+    m = rt.mean(0)
+    out["tokens_cos_gap"] = worst_row_cos_gap(tokens - m, rt - m)
+    out["tokens_call_rel"] = float((tokens - rt).norm() / rt.norm())
+    out["tail_vertices_rel"] = worst_row_rel_l2(verts, tv, 2)
+    out["joints2d_ray_angle"] = worst_ray_angle(j2d, tj, b["intr"])
+    for k in ("tokens_cos_gap", "tokens_call_rel", "tail_vertices_rel", "joints2d_ray_angle"):
+        check(out[k] <= limits[k], f"hmr2 {k} {out[k]} above the cell's limit {limits[k]}")
+    out["memory_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    log(f"phase 16: {json.dumps(out)} [{card}]")
+    del sd, rt, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3838,6 +3936,16 @@ def main():
     log(f"build: {seconds:.1f} s")
     for name, text in sorted(_build.build_log.items()):
         log(f"--- nvcc {name}.cu\n{text.strip()}")
+    if sys.argv[1:] == ["--only", "hmr2"]:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=30).stdout.strip()
+        phase_hmr2(dev, smi.splitlines()[0])
+        print(smi.splitlines()[0])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     kernels = [phase_skinning(dev), phase_stage1(dev)]
     launches, fps = phase_chain(dev)
@@ -3917,6 +4025,8 @@ def main():
         phase15["seconds"] = time.perf_counter() - t15
     log(f"phase 15: {phase15['seconds']:.1f} s [{card}]")
     log(json.dumps({"phase15": phase15}))
+    torch.cuda.empty_cache()
+    kernels[0]["at_smpl_shape"] = phase_hmr2(dev, card)["skinning"]
     # launches: kernel launches in the main path's run of the chain that uses
     # each kernel (int8_block: its 42 conv launches, beside its 13 block calls)
     launches["int8_conv"] = int8_launches["int8"]["int8_conv"]

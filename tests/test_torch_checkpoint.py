@@ -25,7 +25,7 @@ from airpose_tpu_torch.models.resnet import ResNet50
 from airpose_tpu_torch.train import checkpoint as tckpt
 from airpose_tpu_torch.train.state import create_train_state, model_variables
 
-FAMILIES = list(MODEL_REGISTRY)
+FAMILIES = [f for f in MODEL_REGISTRY if f in JREGISTRY]   # the families both packages have
 
 
 @pytest.fixture(autouse=True)

@@ -37,7 +37,7 @@ from airpose_tpu_torch.train.checkpoint import (int8_operands_from_jax,
                                                 state_dict_from_flax)
 
 B, IMG = 2, 64
-FAMILIES = list(MODEL_REGISTRY)
+FAMILIES = [f for f in MODEL_REGISTRY if f in JREGISTRY]   # the families both packages have
 SEP = "copenet_twoview_sep"
 
 
