@@ -17,7 +17,13 @@ training-only regulariser and absent here.
 The dtype policy is the mixed precision HMR 2.0 trains in: parameters stay
 float32 and are cast at the call; the patch convolution, every linear and
 the attention run in ``dtype`` (bf16 on the card); the residual stream and
-the LayerNorm statistics stay float32. Attention goes through
+the LayerNorm statistics stay float32. Each residual add is fused with the
+LayerNorm that follows it and the cast of its output
+(``ops/add_layernorm.py``; one kernel launch on the card): a block adds the
+previous block's MLP branch at its ``norm1`` and its own attention branch at
+its ``norm2``, and returns its MLP branch still to be added, which the next
+block's ``norm1`` or ``last_norm`` takes. That makes 2·depth + 1 norm points
+a forward. Attention goes through
 ``F.scaled_dot_product_attention`` restricted to the flash and
 memory-efficient backends (``attention``), so an input that would fall back
 to the math path raises. Each attention module counts its calls in
@@ -25,13 +31,14 @@ to the math path raises. Each attention module counts its calls in
 """
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from ..ops.add_layernorm import add_layernorm
 from ..utils.profiling import span
 
 FAST_SDPA = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
@@ -128,9 +135,11 @@ class Mlp(nn.Module):
         return linear(F.gelu(linear(x, self.fc1)), self.fc2)
 
 
-def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-    """``norm`` over the float32 ``x``, in float32."""
-    return F.layer_norm(x, norm.normalized_shape, norm.weight, norm.bias, norm.eps)
+def norm_point(x: torch.Tensor, branch: Optional[torch.Tensor], norm: nn.LayerNorm,
+               dtype: torch.dtype) -> torch.Tensor:
+    """``x += branch`` on the float32 residual stream (unless ``branch`` is
+    None), then ``norm`` over ``x`` in float32, cast to ``dtype``."""
+    return add_layernorm(x, branch, norm.weight, norm.bias, norm.eps, dtype)
 
 
 class Block(nn.Module):
@@ -141,11 +150,13 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(cfg.width, eps=1e-6)
         self.mlp = Mlp(cfg.width, cfg.mlp_ratio * cfg.width)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """The float32 residual stream ``x`` (B, N, C), updated in place."""
-        x += self.attn(layer_norm(x, self.norm1).to(dtype))
-        x += self.mlp(layer_norm(x, self.norm2).to(dtype))
-        return x
+    def forward(self, x: torch.Tensor, branch: Optional[torch.Tensor],
+                dtype: torch.dtype) -> torch.Tensor:
+        """Adds the previous block's pending ``branch`` to the float32
+        residual stream ``x`` (B, N, C) in place, then runs this block; its
+        MLP branch is returned, not yet added."""
+        x_attn = self.attn(norm_point(x, branch, self.norm1, dtype))
+        return self.mlp(norm_point(x, x_attn, self.norm2, dtype))
 
 
 def _init_linear_(m: nn.Linear, generator) -> None:
@@ -180,6 +191,7 @@ class ViT(nn.Module):
             pos = self.pos_embed[:, 1:] + self.pos_embed[:, :1]
             h = self.patch_embed(x.to(self.dtype)).float() + pos
         with span("vit_blocks"):
+            branch = None
             for blk in self.blocks:
-                h = blk(h, self.dtype)
-            return layer_norm(h, self.last_norm)
+                branch = blk(h, branch, self.dtype)
+            return norm_point(h, branch, self.last_norm, torch.float32)

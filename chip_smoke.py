@@ -189,13 +189,18 @@ Phases, each of which exits non-zero on failure:
      last.ckpt; each sub-phase's kernel launches counted.
  16. HMR 2.0 (models/hmr2.py, perception.perceive_hmr2) at its published
      widths: the skinning kernel at SMPL's J = 24, V = 6,890 (B = 128)
-     against its plain version, timed; the attention guard (an input no fast
-     backend takes raises under models/vit.attention, and the chain's
-     attention kernels are the flash or memory-efficient ones); then the
-     chain on 64 two-view frames of 256² from the benchmark's weights maker
-     and inputs: 44 attention calls and 1 skinning launch a call, the tokens
-     and the tail against benchmark/reference/hmr2.py by the limits of the
-     cell perceive_hmr2_vith_b64, and two_view_fps from CUDA events.
+     against its plain version, timed; the fused add + LayerNorm + cast
+     (ops/add_layernorm.py) at 128 crops of 192 tokens of 1,280 against its
+     plain version (x bit-equal, the bf16 rows within one step), timed
+     beside its bound, the plain three ops and F.layer_norm alone; the
+     attention guard (an input no fast backend takes raises under
+     models/vit.attention, and the chain's attention kernels are the flash or
+     memory-efficient ones); then the chain on 64 two-view frames of 256²
+     from the benchmark's weights maker and inputs: 44 attention calls, 65
+     add_layernorm launches and 1 skinning launch a call, the tokens and the
+     tail against benchmark/reference/hmr2.py by the limits of the cell
+     perceive_hmr2_vith_b64, and two_view_fps from CUDA events, with the norm
+     points as the kernel and as the plain three ops.
      ``python3 chip_smoke.py --only hmr2`` builds the kernels and runs this
      phase alone.
 Prints the kernels as one JSON line, the card's name and power limit, and
@@ -1352,21 +1357,24 @@ def write_smplx_npz(directory):
 
 def kernel_counts():
     from airpose_tpu_torch.bodymodel import cuda_lbs
+    from airpose_tpu_torch.ops import add_layernorm as aln
     from airpose_tpu_torch.ops import fused_bottleneck as fb
     from airpose_tpu_torch.ops import int8_conv as ic
     from airpose_tpu_torch.ops import int8_stem as st
 
     return {"lbs_skinning": cuda_lbs.launches, "fused_stage1": fb.launches,
-            "int8_conv": ic.launches, "int8_stem": st.launches}
+            "int8_conv": ic.launches, "int8_stem": st.launches,
+            "add_layernorm": aln.launches}
 
 
 def reset_kernel_counts():
     from airpose_tpu_torch.bodymodel import cuda_lbs
+    from airpose_tpu_torch.ops import add_layernorm as aln
     from airpose_tpu_torch.ops import fused_bottleneck as fb
     from airpose_tpu_torch.ops import int8_conv as ic
     from airpose_tpu_torch.ops import int8_stem as st
 
-    cuda_lbs.launches = fb.launches = ic.launches = st.launches = 0
+    cuda_lbs.launches = fb.launches = ic.launches = st.launches = aln.launches = 0
 
 
 class CliRun:
@@ -1495,7 +1503,7 @@ def phase_cli(dev, tmp, card, phase8_step_ms):
     check(bodies == want, f"CLI skinning launches by bodies {bodies}, expected {want} "
           "(dataset; 60 a train step; the val batch; the summary grid)")
     check(counts == {"lbs_skinning": len(want), "fused_stage1": 0, "int8_conv": 0,
-                     "int8_stem": 0},
+                     "int8_stem": 0, "add_layernorm": 0},
           f"CLI kernel launches {counts}")
     files = sorted(os.listdir(ckpt_dir))
     check(files == ["best.ckpt", "best_val.json", "last.ckpt"], f"checkpoints {files}")
@@ -1767,7 +1775,7 @@ def phase_readers(dev, tmp, smplx_params, card):
         f"included), launches {counts}; kernel vs plain skinning, max relative {rel} "
         f"(bound {CANON_REL}) [{card}]")
     check(counts == {"lbs_skinning": chunks, "fused_stage1": 0, "int8_conv": 0,
-                     "int8_stem": 0},
+                     "int8_stem": 0, "add_layernorm": 0},
           f"precompute launches {counts}, expected {chunks} skinning")
     check(all(r <= CANON_REL for r in rel.values()), f"canonical GT with the kernel: {rel}")
 
@@ -2091,7 +2099,7 @@ def phase_real_cli(tmp, root, card, phase8_step_ms, pretrained):
     check(per_call == {"train": 1, "val": 1, "grid": 1, "set-up": 0}
           and "other" not in cli.where, f"real CLI skinning launches a call {per_call}")
     check(counts == {"lbs_skinning": len(want), "fused_stage1": 0, "int8_conv": 0,
-                     "int8_stem": 0},
+                     "int8_stem": 0, "add_layernorm": 0},
           f"real CLI kernel launches {counts}")
     check(not skipped, f"real CLI summary grid not rendered: {skipped}")
     files = sorted(os.listdir(os.path.join(logs, "real", "version_0", "checkpoints")))
@@ -2302,7 +2310,8 @@ def phase_eval_passes(dev, tmp, card):
         check(bodies == want_bodies, f"{name}: skinned {bodies}, expected {want_bodies}")
         # one stem launch a trunk call, beside its 52 int8 convs
         check(counts == {"lbs_skinning": len(want_bodies), "fused_stage1": 0,
-                         "int8_conv": want_int8, "int8_stem": want_int8 // 52},
+                         "int8_conv": want_int8, "int8_stem": want_int8 // 52,
+                         "add_layernorm": 0},
               f"{name}: launches {counts}")
         check(all(np.isfinite(v) for v in metrics.values())
               and all(np.isfinite(a).all() for o in outputs for a in o["output"].values()),
@@ -2638,7 +2647,7 @@ def serving_staged(dev, model, u8, bb):
     want = 4 * 52
     log(f"staged int8 ({n} frames × 2 views): launches {launches}, expected int8_conv {want}")
     check(launches == {"lbs_skinning": 0, "fused_stage1": 0, "int8_conv": want,
-                       "int8_stem": want // 52},
+                       "int8_stem": want // 52, "add_layernorm": 0},
           f"staged int8 launches {launches}, expected {want} int8 conv launches and "
           f"{want // 52} stem launches only")
     eager = StagedRegressor(model, int8=True, device=dev)
@@ -2943,10 +2952,10 @@ def phase_serving(dev, tmp, card):
     # step-1 call and its capture; the later frames replay the graph
     want = 2 * 4 * 52
     check(served["f32"]["launches"] == {"lbs_skinning": 0, "fused_stage1": 0, "int8_conv": 0,
-                                        "int8_stem": 0},
+                                        "int8_stem": 0, "add_layernorm": 0},
           f"f32 serving launched kernels: {served['f32']['launches']}")
     check(served["int8"]["launches"] == {"lbs_skinning": 0, "fused_stage1": 0, "int8_conv": want,
-                                         "int8_stem": want // 52},
+                                         "int8_stem": want // 52, "add_layernorm": 0},
           f"--int8 serving launches {served['int8']['launches']}, expected {want} int8 conv")
     log(f"--int8 served pose rms of the f32 forward {pose_rms.tolist()}; int8 conv launches "
         f"{want} = 2 servers × (calibration + clip report + first frame + capture) × 52; "
@@ -2992,7 +3001,7 @@ def phase_serving(dev, tmp, card):
     torch.cuda.synchronize()
     launches = kernel_counts()
     check(launches == {"lbs_skinning": VIZ_FRAMES, "fused_stage1": 0, "int8_conv": 0,
-                       "int8_stem": 0},
+                       "int8_stem": 0, "add_layernorm": 0},
           f"viz launches {launches}, expected {VIZ_FRAMES} skinning launches")
     pngs = sorted(os.listdir(viz_dir))
     check(len(pngs) == VIZ_FRAMES, f"viz wrote {pngs}")
@@ -3836,13 +3845,72 @@ def phase_multidevice(dev, tmp, card):
     return out
 
 
+def bf16_steps(a, b):
+    """Per value, how many bf16 steps apart the bf16 tensors ``a`` and ``b``
+    are."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def add_layernorm_at(dev, rows=128 * 192, width=1280):
+    """The fused add + LayerNorm + cast at HMR 2.0's 128 crops (a bf16
+    branch and output, the blocks' case) against its plain version, then the
+    kernel, the plain three ops, F.layer_norm alone (f32 in and out: the
+    library yardstick) and the bound."""
+    from torch.nn import functional as F
+
+    from airpose_tpu_torch.ops import _build
+    from airpose_tpu_torch.ops import add_layernorm as aln
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = 2 * torch.randn(rows, width, generator=g, device=dev) + 0.5
+    branch = torch.randn(rows, width, generator=g, device=dev).to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(width, generator=g, device=dev)
+    b = 0.1 * torch.randn(width, generator=g, device=dev)
+    want_x = x.clone()
+    want = aln.add_layernorm_reference(want_x, branch, w, b, 1e-6, torch.bfloat16)
+    got = aln.add_layernorm(x, branch, w, b, 1e-6, torch.bfloat16)
+    torch.cuda.synchronize()
+    # the f32 rows differ by the statistics' order of summation (within 2e-6
+    # of the largest output): one bf16 step, or more on outputs near 0
+    steps, diff = bf16_steps(got, want), (got.float() - want.float()).abs()
+    far = steps > 1
+    out = {"x_equal": bool(torch.equal(x, want_x)), "max_steps": int(steps.max()),
+           "share_off": float((steps > 0).float().mean()),
+           "share_over_one_step": float(far.float().mean()),
+           "max_abs_over_one_step": float(diff[far].max()) if bool(far.any()) else 0.0,
+           "largest_output": float(want.float().abs().max())}
+    check(out["x_equal"] and out["share_off"] < 1e-3
+          and out["max_abs_over_one_step"] <= 2e-6 * out["largest_output"],
+          f"add_layernorm disagrees with its plain version: {out}")
+    out["ms"] = time_ms(lambda: aln.add_layernorm(x, branch, w, b, 1e-6, torch.bfloat16),
+                        iters=50, warmup=5)
+    out["plain_ms"] = time_ms(
+        lambda: aln.add_layernorm_reference(x, branch, w, b, 1e-6, torch.bfloat16),
+        iters=50, warmup=5)
+    out["library_ms"] = time_ms(lambda: F.layer_norm(x, (width,), w, b, 1e-6), iters=50,
+                                warmup=5)
+    out["bound_ms"] = aln.add_layernorm_cost(x, branch, torch.bfloat16) / HBM_BYTES_PER_S * 1e3
+    out["ptxas"] = ptxas_lines(_build.build_log.get("add_layernorm", ""), "add_layernorm")
+    log(f"add_layernorm ({rows}, {width}): kernel {out['ms']:.4f} ms, plain three ops "
+        f"{out['plain_ms']:.4f} ms, F.layer_norm alone {out['library_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms (bytes), kernel at {out['bound_ms'] / out['ms']:.1%} of its "
+        f"bound; {out}")
+    return out
+
+
 def phase_hmr2(dev, card):
-    """Phase 16: SMPL's skinning shape, the attention guard, and the HMR 2.0
-    chain at the published widths against the benchmark's reference."""
+    """Phase 16: SMPL's skinning shape, the fused norm point, the attention
+    guard, and the HMR 2.0 chain at the published widths against the
+    benchmark's reference."""
     from torch.profiler import ProfilerActivity, profile
 
     from airpose_tpu_torch.bodymodel import cuda_lbs, synthetic_smpl_params
     from airpose_tpu_torch.models import vit as vit_mod
+    from airpose_tpu_torch.ops import add_layernorm as aln
     from airpose_tpu_torch.perception import perceive_hmr2
     from benchmark.drivers import worst_ray_angle, worst_row_cos_gap, worst_row_rel_l2
     from benchmark.drivers.perceive_hmr2 import program_hmr2, program_smpl
@@ -3858,6 +3926,7 @@ def phase_hmr2(dev, card):
     w = synthetic_smpl_params().lbs_weights.to(dev)
     out["skinning"] = skinning_at(w, torch.from_numpy(rel).to(dev), p)
     out["skinning"]["resources"] = cuda_lbs.kernel_resources(J)
+    out["add_layernorm"] = add_layernorm_at(dev)
 
     q = torch.randn(2, 16, 192, 80, device=dev, dtype=torch.float64)
     try:
@@ -3878,13 +3947,16 @@ def phase_hmr2(dev, card):
     b = perception_pool(13, 1, 64, cfg["crop"], dev)[0]
     seen = {}
     model.backbone.register_forward_hook(lambda m, a, o: seen.update(tokens=o))
-    calls, launches = model.attention_calls, cuda_lbs.launches
+    calls, launches, norms = model.attention_calls, cuda_lbs.launches, aln.launches
     verts, j2d = perceive_hmr2(model, smpl, b["images"], b["bb"], b["intr"])
     torch.cuda.synchronize()
     out["attention_calls_a_call"] = model.attention_calls - calls
     out["skinning_launches_a_call"] = cuda_lbs.launches - launches
+    out["add_layernorm_launches_a_call"] = aln.launches - norms
     check(out["attention_calls_a_call"] == 44, f"attention calls a call: {out}")
     check(out["skinning_launches_a_call"] == 1, f"skinning launches a call: {out}")
+    check(out["add_layernorm_launches_a_call"] == 2 * model.backbone.cfg.depth + 1,
+          f"add_layernorm launches a call: {out}")
     check(bool(torch.isfinite(verts).all() and torch.isfinite(j2d).all()), "non-finite outputs")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         perceive_hmr2(model, smpl, b["images"], b["bb"], b["intr"])
@@ -3900,6 +3972,12 @@ def phase_hmr2(dev, card):
                      iters=10, warmup=2)
     out["call_ms"], out["two_view_fps"] = fps_ms, 64 / fps_ms * 1e3
     tokens = seen["tokens"]
+    with mock.patch.object(vit_mod, "add_layernorm", aln.add_layernorm_reference):
+        out["call_ms_three_ops"] = wall_ms(
+            lambda: perceive_hmr2(model, smpl, b["images"], b["bb"], b["intr"]), iters=10,
+            warmup=2)
+    log(f"hmr2 chain: {fps_ms:.3f} ms a call with the fused norm points, "
+        f"{out['call_ms_three_ops']:.3f} ms with the plain three ops [{card}]")
     del model
     torch.cuda.empty_cache()
 
@@ -4026,7 +4104,14 @@ def main():
     log(f"phase 15: {phase15['seconds']:.1f} s [{card}]")
     log(json.dumps({"phase15": phase15}))
     torch.cuda.empty_cache()
-    kernels[0]["at_smpl_shape"] = phase_hmr2(dev, card)["skinning"]
+    hmr2 = phase_hmr2(dev, card)
+    kernels[0]["at_smpl_shape"] = hmr2["skinning"]
+    kernels.append({"name": "add_layernorm", "route": "cuda",
+                    "source": "airpose_tpu_torch/csrc/add_layernorm.cu",
+                    "replaces": "no TPU kernel (port only: HMR 2.0's residual add, LayerNorm "
+                                "and bf16 cast, three PyTorch passes a norm point)"}
+                   | hmr2["add_layernorm"])
+    launches["add_layernorm"] = hmr2["add_layernorm_launches_a_call"]
     # launches: kernel launches in the main path's run of the chain that uses
     # each kernel (int8_block: its 42 conv launches, beside its 13 block calls)
     launches["int8_conv"] = int8_launches["int8"]["int8_conv"]
