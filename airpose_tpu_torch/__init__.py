@@ -20,7 +20,7 @@ workflow's tools):
                  (staged.py), the per-drone TCP server, the served-vs-offline
                  benchtest, the lag-one report and the result viz
   perception.py  the chain of the root bench.py: trunk → IEF → 6D → SMPL-X → projection
-  entry.py, bench.py, profile_*.py   entry point, throughput, device-time splits
+  entry.py       entry points: the flagship forward and the multi-device dry run
   train/         the training steps: loop.py (make_twoview_step_fns,
                  make_singleview_step_fns, the real-data make_real_*_step_fns),
                  state.py (TrainState, optax-equal AMSGrad), losses.py,
@@ -34,8 +34,9 @@ workflow's tools):
   config.py      TrainConfig and the loss weights
   models/        ResNet-50 trunk (eval and train-mode BatchNorm), IEF regressor,
                  HMR, SingleViewFullCam, MuHMR, AirPoseTwoView, AirPoseTwoViewSep
-  ops/           fused layer1 stage, int8 conv and blocks (CUDA kernels), QAT,
-                 the nvcc/ctypes builder
+  ops/           fused layer1 stage, int8 stem, conv and blocks, the ViT's
+                 residual add + LayerNorm (CUDA kernels), QAT, the nvcc/ctypes
+                 builder and the one launch path of every kernel (_build.py)
   bodymodel/     SMPL-X forward, LBS, skinning (CUDA kernel, with its backward),
                  the VPoser pose prior
   geometry/      rotation conversions, projections and rigid transforms, robustifiers

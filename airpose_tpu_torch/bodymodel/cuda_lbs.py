@@ -22,7 +22,6 @@ import torch
 
 from ..ops import _build
 
-launches = 0  # kernel launches since the last reset (a plain integer)
 MAX_JOINTS = 256
 
 
@@ -101,41 +100,25 @@ def skinning_cuda(lbs_weights: torch.Tensor, rel_tf: torch.Tensor,
 def _launch(lbs_weights: torch.Tensor, rel_tf: torch.Tensor,
             v_posed: torch.Tensor) -> torch.Tensor:
     """Launch the kernel; raises on anything it does not take."""
-    global launches
     V, J = lbs_weights.shape
     B = rel_tf.shape[0]
     if not 0 < J <= MAX_JOINTS:
         raise ValueError(f"skinning_cuda: {J} joints, the kernel takes 1..{MAX_JOINTS}")
-    for name, t, shape in (("lbs_weights", lbs_weights, (V, J)),
-                           ("rel_tf", rel_tf, (B, J, 4, 4)),
-                           ("v_posed", v_posed, (B, V, 3))):
-        if t.device.type != "cuda" or t.device != v_posed.device:
-            raise ValueError(f"skinning_cuda: {name} is on {t.device}, "
-                             "all inputs must be on one CUDA device")
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"skinning_cuda: {name} is {t.dtype} "
-                             f"{tuple(t.shape)}, expected float32 {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"skinning_cuda: {name} is not contiguous")
+    dev = v_posed.device
+    if dev.type != "cuda":
+        raise ValueError(f"skinning_cuda: v_posed is on {dev}, not CUDA")
     # the transforms are copied in 16-byte pieces; W is read by 4-byte copies
     # and p through the 16-byte-aligned span around it, so both may start at
     # any float
-    if rel_tf.data_ptr() % 16:
-        raise ValueError("skinning_cuda: rel_tf is not 16-byte aligned")
+    for name, t, shape, align in (("lbs_weights", lbs_weights, (V, J), 0),
+                                  ("rel_tf", rel_tf, (B, J, 4, 4), 16),
+                                  ("v_posed", v_posed, (B, V, 3), 0)):
+        _build.check_tensor("skinning_cuda", name, t, dev, torch.float32, shape, align)
     out = torch.empty_like(v_posed)
     if B and V:
         fn = _build.function("lbs_skinning", "airpose_lbs_skinning", 4, 3)
-        args = (lbs_weights.data_ptr(), rel_tf.data_ptr(), v_posed.data_ptr(),
-                out.data_ptr(), B, V, J)
-        dev = v_posed.device.index
-        if dev == torch.cuda.current_device():
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
-        else:
-            with torch.cuda.device(dev):
-                err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
-        _build.check(err, "lbs_skinning")
-        with _build.count_lock:
-            launches += 1
+        _build.launch(fn, (lbs_weights.data_ptr(), rel_tf.data_ptr(), v_posed.data_ptr(),
+                           out.data_ptr(), B, V, J), dev, "lbs_skinning")
     return out
 
 

@@ -45,20 +45,12 @@
 //  * Host: the dynamic shared-memory opt-in and the SM count are read once
 //    per device.
 // Measured on the H100 (PERF.md, section 6): the inner loop, not the copies,
-// takes most of the time; `python -m airpose_tpu_torch.profile_skinning`
-// builds the kernel with LBS_ABLATE bits set to switch phases off
-// (1: the inner loop's shared loads, 2: the staging after the first chunk,
-// 4: the p copies and the output stores) and times each build. The package
-// builds it with LBS_ABLATE 0.
+// takes most of the time.
 
 #include <atomic>
 #include <cstdint>
 
 #include <cuda_runtime.h>
-
-#ifndef LBS_ABLATE
-#define LBS_ABLATE 0
-#endif
 
 namespace {
 
@@ -175,7 +167,7 @@ __global__ void __launch_bounds__(NT, 1) skinning_kernel(
       const int bb = 2 * warp + q;
       const float* src = P + ((size_t)(b0 + bb) * V + v0) * 3;
       mis[q] = (int)(reinterpret_cast<uintptr_t>(src) >> 2 & 3);
-      if (b0 + bb >= B || LBS_ABLATE & 4) continue;
+      if (b0 + bb >= B) continue;
       const int n16 = (3 * nv + mis[q] + 3) / 4;
       for (int i = lane; i < n16; i += 32) cp_async16(ps + bb * PS + 4 * i, src - mis[q] + 4 * i, true);
     }
@@ -195,7 +187,7 @@ __global__ void __launch_bounds__(NT, 1) skinning_kernel(
       stage_p(v0, b0, mis);
       cp_async_commit();
     }
-    if (s + 1 < steps && !(LBS_ABLATE & 2)) stage(s + 1);
+    if (s + 1 < steps) stage(s + 1);
     cp_async_commit();
 
     if (c == 0) {
@@ -213,13 +205,6 @@ __global__ void __launch_bounds__(NT, 1) skinning_kernel(
       const float4* as4 =
           reinterpret_cast<const float4*>(smem + (s & 1) * L::A_FLOATS) + (2 * warp + lq) * KJ * 4;
       auto load = [&](int jj, float4 (&w)[2], float4 (&x)[3]) {
-        if (LBS_ABLATE & 1) {
-          const float f = jj * 1e-3f;
-          w[0] = make_float4(f, f + 1.f, f + 2.f, f + 3.f);
-          w[1] = make_float4(f - 1.f, f - 2.f, f - 3.f, f - 4.f);
-          x[0] = x[1] = x[2] = make_float4(2.f * f, 3.f * f, 4.f * f, 5.f * f);
-          return;
-        }
         w[0] = ws4[jj * (WS / 4)];
         w[1] = ws4[jj * (WS / 4) + 16];
         x[0] = as4[jj * 4];
@@ -261,7 +246,7 @@ __global__ void __launch_bounds__(NT, 1) skinning_kernel(
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int b = b0 + 2 * warp + q;
-        if (b >= B || (LBS_ABLATE & 4 && B > 0)) continue;
+        if (b >= B) continue;
         const float* src = ps + (2 * warp + q) * PS + mis[q];
         float* dst = out + ((size_t)b * V + v0) * 3;
         for (int i = lane; i < 3 * nv; i += 32) dst[i] = src[i];

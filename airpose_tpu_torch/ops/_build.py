@@ -13,10 +13,31 @@ module is imported. Threads of one process build and load under one lock,
 and each names its temporary file by process and thread, so two servers'
 executor threads that launch their first kernels at once run one build.
 
-``count_lock`` guards the kernel wrappers' launch counters: a read, add and
-write from two threads could otherwise lose a launch.
+Every launch of a hand-written kernel goes through ``launch``, which holds
+the contract in one place:
+
+- The kernel runs on the current stream of its tensors' device. Served
+  rounds are captured as CUDA graphs on a stream of their own, and a launch
+  on any other stream would escape the capture.
+- The stream is the raw handle from ``torch._C._cuda_getCurrentRawStream``,
+  and the device guard is entered only when that device is not already
+  current: the int8 trunk makes 52 launches a call while its later layers
+  wait on the host, and a ``Stream`` object and a guard cost host time on
+  each.
+- A non-zero CUDA error code raises.
+- Each launch adds one to ``counts`` under the C library's name
+  (``lbs_skinning``, ``fused_stage1``, ``int8_conv``, ``int8_stem``,
+  ``add_layernorm``). The count is taken on the host, at eager calls and at
+  graph capture, never at a replay. ``counts`` also holds ``int8_block``
+  (block calls that launched) and ``quantize_act`` (the int8 trunk's
+  quantizations in torch); callers read ``counts[name]`` and reset with
+  ``counts.clear()``.
+
+``check_tensor`` is the wrappers' one test of a kernel's tensor operands,
+made before a wrapper allocates its outputs or launches.
 """
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -25,6 +46,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -37,7 +60,8 @@ _libs = {}       # source stem -> loaded ctypes.CDLL
 _functions = {}  # (source stem, C name) -> typed ctypes function
 build_log = {}   # source stem -> nvcc's stderr (ptxas registers / shared memory)
 _lock = threading.RLock()  # build_all and function's first use
-count_lock = threading.Lock()  # the wrappers' launch counters
+counts = collections.Counter()  # launches (and counted calls) by name since the last clear
+_count_lock = threading.Lock()  # a read, add and write from two threads could lose a count
 
 
 def _nvcc() -> str:
@@ -116,3 +140,43 @@ def function(lib: str, name: str, n_ptr: int, n_int: int, n_float: int = 0,
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def count(what: str) -> None:
+    """Add one to ``counts[what]``."""
+    with _count_lock:
+        counts[what] += 1
+
+
+def launch(fn, args, device: torch.device, what: str) -> None:
+    """``fn(*args, stream)`` on ``device``'s current stream, then ``check``
+    its error code and count one launch under ``what``."""
+    dev = device.index
+    if dev == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    check(err, what)
+    count(what)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def check_tensor(who: str, name: str, t: torch.Tensor, device: torch.device,
+                 dtype: torch.dtype, shape, align: int = 0) -> None:
+    """Raise ``ValueError``, naming ``who`` and the operand ``name``, unless
+    ``t`` is on ``device``, of ``dtype`` and ``shape`` (a tuple), contiguous
+    and, with ``align``, starts at a multiple of ``align`` bytes."""
+    if t.device != device:
+        raise ValueError(f"{who}: {name} is on {t.device}, all inputs must be on one CUDA "
+                         f"device ({device})")
+    if t.dtype != dtype or t.shape != shape:
+        raise ValueError(f"{who}: {name} is {_dtype_name(t.dtype)} {tuple(t.shape)}, "
+                         f"expected {_dtype_name(dtype)} {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{who}: {name} is not contiguous")
+    if align and t.data_ptr() % align:
+        raise ValueError(f"{who}: {name} is not {align}-byte aligned")

@@ -26,8 +26,6 @@ from torch.nn import functional as F
 
 from . import _build
 
-launches = 0  # kernel launches since the last reset (a plain integer)
-
 BRANCH_KINDS = {None: 0, torch.bfloat16: 1, torch.float32: 2}
 OUT_KINDS = {torch.bfloat16: 0, torch.float32: 1}
 MAX_WIDTH = 1536  # 32 lanes × 4 values × the kernel's K_MAX chunks
@@ -65,7 +63,6 @@ def add_layernorm(x: torch.Tensor, branch: Optional[torch.Tensor], weight: torch
 def add_layernorm_cuda(x: torch.Tensor, branch: Optional[torch.Tensor], weight: torch.Tensor,
                        bias: torch.Tensor, eps: float, out_dtype: torch.dtype) -> torch.Tensor:
     """Launch the kernel; raises on anything it does not take."""
-    global launches
     C = x.shape[-1]
     if C % 8 or not 0 < C <= MAX_WIDTH:
         raise ValueError(f"add_layernorm: width {C}, the kernel takes multiples of 8 up to "
@@ -76,21 +73,14 @@ def add_layernorm_cuda(x: torch.Tensor, branch: Optional[torch.Tensor], weight: 
     if branch is not None and branch.dtype not in BRANCH_KINDS:
         raise ValueError(f"add_layernorm: branch is {branch.dtype}, the kernel reads "
                          "bfloat16 or float32")
+    if x.device.type != "cuda":
+        raise ValueError(f"add_layernorm: x is on {x.device}, not CUDA")
     inputs = (("x", x, torch.float32, x.shape), ("weight", weight, torch.float32, (C,)),
               ("bias", bias, torch.float32, (C,)))
     if branch is not None:
         inputs += (("branch", branch, branch.dtype, x.shape),)
     for name, t, dtype, shape in inputs:
-        if t.dtype != dtype or t.shape != shape:
-            raise ValueError(f"add_layernorm: {name} is {t.dtype} {tuple(t.shape)}, expected "
-                             f"{dtype} {tuple(shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"add_layernorm: {name} is not contiguous")
-        if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"add_layernorm: {name} is on {t.device}, all inputs must be on "
-                             "one CUDA device")
-        if t.data_ptr() % 16:
-            raise ValueError(f"add_layernorm: {name} is not 16-byte aligned")
+        _build.check_tensor("add_layernorm", name, t, x.device, dtype, shape, 16)
     if torch.is_grad_enabled() and any(t.requires_grad for _, t, _, _ in inputs):
         raise RuntimeError("add_layernorm: the kernel has no backward (run it under no_grad)")
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
@@ -101,14 +91,5 @@ def add_layernorm_cuda(x: torch.Tensor, branch: Optional[torch.Tensor], weight: 
                 bias.data_ptr(), y.data_ptr(), rows, C,
                 BRANCH_KINDS[None if branch is None else branch.dtype], OUT_KINDS[out_dtype],
                 eps)
-        dev = x.device.index
-        if dev == torch.cuda.current_device():
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
-        else:
-            with torch.cuda.device(dev):
-                err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
-        _build.check(err, "add_layernorm")
-        with _build.count_lock:
-            launches += 1
+        _build.launch(fn, args, x.device, "add_layernorm")
     return y
-

@@ -31,8 +31,6 @@ C_MID = 64
 C_OUT = 256
 MAX_WIDTH = 128     # beside the resident weights, shared memory holds bands of at most this width
 
-launches = 0  # kernel launches since the last reset (one per block)
-
 StageOps = List[Dict[str, torch.Tensor]]
 
 
@@ -105,19 +103,8 @@ def fused_stage1(x: torch.Tensor, stage_ops: StageOps) -> torch.Tensor:
     return fused_stage1_cuda(x, stage_ops)
 
 
-def _check(name, t, device, dtype, shape):
-    if t.device != device:
-        raise ValueError(f"fused_stage1_cuda: {name} is on {t.device}, not {device}")
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fused_stage1_cuda: {name} is {t.dtype} "
-                         f"{tuple(t.shape)}, expected {dtype} {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"fused_stage1_cuda: {name} is not contiguous")
-
-
 def fused_stage1_cuda(x: torch.Tensor, stage_ops: StageOps) -> torch.Tensor:
     """Launch the kernel once per block; raises on anything it does not take."""
-    global launches
     if x.device.type != "cuda":
         raise ValueError(f"fused_stage1_cuda: x is on {x.device}, not CUDA")
     if x.ndim != 4:
@@ -130,35 +117,32 @@ def fused_stage1_cuda(x: torch.Tensor, stage_ops: StageOps) -> torch.Tensor:
         raise ValueError("fused_stage1_cuda: expected the operands of 3 blocks")
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError("fused_stage1_cuda has no backward")
-    fn = _build.function("fused_stage1", "airpose_bottleneck_block", 10, 4)
     bf16, f32 = torch.bfloat16, torch.float32
+    _build.check_tensor("fused_stage1_cuda", "x", x, x.device, bf16, (B, h, w, C_IN))
+    for i, blk in enumerate(stage_ops):
+        cin = C_IN if i == 0 else C_OUT
+        specs = {"w1": (bf16, (C_MID, cin)), "b1": (f32, (C_MID,)),
+                 "w2": (bf16, (C_MID, 9 * C_MID)), "b2": (f32, (C_MID,)),
+                 "w3": (bf16, (C_OUT, C_MID)), "b3": (f32, (C_OUT,))}
+        if i == 0:
+            specs.update(wp=(bf16, (C_OUT, C_IN)), bp=(f32, (C_OUT,)))
+        elif "wp" in blk:
+            raise ValueError(f"fused_stage1_cuda: block {i} has a projection")
+        for k, (dt, shape) in specs.items():
+            if k not in blk:
+                raise ValueError(f"fused_stage1_cuda: block {i} lacks {k}")
+            _build.check_tensor("fused_stage1_cuda", f"block {i} {k}", blk[k], x.device, dt,
+                                shape)
+    fn = _build.function("fused_stage1", "airpose_bottleneck_block", 10, 4)
     acts = x
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for i, blk in enumerate(stage_ops):
-            cin = C_IN if i == 0 else C_OUT
-            _check("x" if i == 0 else f"block {i - 1} output", acts, x.device,
-                   bf16, (B, h, w, cin))
-            specs = {"w1": (bf16, (C_MID, cin)), "b1": (f32, (C_MID,)),
-                     "w2": (bf16, (C_MID, 9 * C_MID)), "b2": (f32, (C_MID,)),
-                     "w3": (bf16, (C_OUT, C_MID)), "b3": (f32, (C_OUT,))}
-            if i == 0:
-                specs.update(wp=(bf16, (C_OUT, C_IN)), bp=(f32, (C_OUT,)))
-            elif "wp" in blk:
-                raise ValueError(f"fused_stage1_cuda: block {i} has a projection")
-            for k, (dt, shape) in specs.items():
-                if k not in blk:
-                    raise ValueError(f"fused_stage1_cuda: block {i} lacks {k}")
-                _check(f"block {i} {k}", blk[k], x.device, dt, shape)
-            out = torch.empty((B, h, w, C_OUT), dtype=bf16, device=x.device)
-            if B and h:
-                ptr = [blk[k].data_ptr() for k in ("w1", "b1", "w2", "b2", "w3", "b3")]
-                wp, bp = (blk["wp"].data_ptr(), blk["bp"].data_ptr()) if i == 0 else (None, None)
-                _build.check(fn(acts.data_ptr(), *ptr, wp, bp, out.data_ptr(),
-                                B, h, w, cin, stream), "fused_stage1")
-                with _build.count_lock:
-                    launches += 1
-            acts = out
+    for i, blk in enumerate(stage_ops):
+        out = torch.empty((B, h, w, C_OUT), dtype=bf16, device=x.device)
+        if B and h:
+            ptr = [blk[k].data_ptr() for k in ("w1", "b1", "w2", "b2", "w3", "b3")]
+            wp, bp = (blk["wp"].data_ptr(), blk["bp"].data_ptr()) if i == 0 else (None, None)
+            _build.launch(fn, (acts.data_ptr(), *ptr, wp, bp, out.data_ptr(), B, h, w,
+                               C_IN if i == 0 else C_OUT), x.device, "fused_stage1")
+        acts = out
     return acts
 
 

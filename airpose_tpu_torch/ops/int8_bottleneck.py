@@ -31,8 +31,6 @@ from ..utils.profiling import span
 from . import _build
 from .int8_conv import int8_conv_cuda, int8_conv_reference
 
-launches = 0  # int8_block calls that launched their kernels, since the last reset
-
 _NAMES = [(stage, blk) for stage, blocks in ((2, 4), (3, 6), (4, 3)) for blk in range(blocks)]
 
 
@@ -95,8 +93,8 @@ def int8_block_reference(x: torch.Tensor, blk: Dict) -> torch.Tensor:
 def int8_block(x: torch.Tensor, blk: Dict) -> torch.Tensor:
     """One quantized bottleneck block: the kernel on CUDA tensors, the plain
     version on CPU tensors. At stride 2 H and W must be even, as the JAX
-    block's phase split requires."""
-    global launches
+    block's phase split requires. Counts one ``int8_block`` in
+    ``_build.counts`` for each call that launched its kernels."""
     if blk["stride"] == 2 and (x.shape[1] % 2 or x.shape[2] % 2):
         raise ValueError(f"int8_block: a stride-2 block takes even H and W, got "
                          f"{tuple(x.shape[1:3])}")
@@ -104,8 +102,7 @@ def int8_block(x: torch.Tensor, blk: Dict) -> torch.Tensor:
         return int8_block_reference(x, blk)
     out = run_block(int8_conv_cuda, x, blk)
     if out.numel():
-        with _build.count_lock:
-            launches += 1
+        _build.count("int8_block")
     return out
 
 

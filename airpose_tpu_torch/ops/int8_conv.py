@@ -34,8 +34,6 @@ from torch.nn import functional as F
 
 from . import _build
 
-launches = 0  # kernel launches since the last reset (a plain integer)
-
 _RES_KIND = {None: 0, torch.int8: 1, torch.float32: 2, torch.bfloat16: 3}
 _OUT_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 _OUT_QUANT = {torch.int8: 3, torch.bfloat16: 4}  # with qscale: int8 alone, or bf16 + int8
@@ -127,23 +125,12 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor, b: torch.Tensor
     return fn(x, w, m, b, ksize, stride, res, r, relu, out_dtype, qscale)
 
 
-def _check(name, t, device, dtype, shape):
-    if t.device != device:
-        raise ValueError(f"int8_conv_cuda: {name} is on {t.device}, not {device}")
-    if t.dtype != dtype or t.shape != shape:
-        raise ValueError(f"int8_conv_cuda: {name} is {t.dtype} {tuple(t.shape)}, "
-                         f"expected {dtype} {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"int8_conv_cuda: {name} is not contiguous")
-
-
 def int8_conv_cuda(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor,
                    b: torch.Tensor, ksize: int, stride: int = 1,
                    res: Optional[torch.Tensor] = None,
                    r: Optional[torch.Tensor] = None, relu: bool = False,
                    out_dtype: torch.dtype = torch.int8, qscale: Optional[float] = None):
     """Launch the kernel once; raises on anything it does not take."""
-    global launches
     if x.device.type != "cuda":
         raise ValueError(f"int8_conv_cuda: x is on {x.device}, not CUDA")
     if x.ndim != 4:
@@ -169,25 +156,24 @@ def int8_conv_cuda(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor,
         if not 0.0 < qscale < float("inf"):
             raise ValueError(f"int8_conv_cuda: qscale {qscale} is not a positive scale")
     ho, wo = out_size(H, ksize, stride), out_size(W, ksize, stride)
-    _check("x", x, x.device, torch.int8, (N, H, W, cin))
-    _check("w", w, x.device, torch.int8, (cout, ksize * ksize * cin))
-    _check("m", m, x.device, torch.float32, (cout,))
-    _check("b", b, x.device, torch.float32, (cout,))
+    dev = x.device
+    # x, w and the residual are copied in chunks of up to 16 bytes; m and b
+    # are read as pairs of neighbouring channels
+    _build.check_tensor("int8_conv_cuda", "x", x, dev, torch.int8, (N, H, W, cin), 16)
+    _build.check_tensor("int8_conv_cuda", "w", w, dev, torch.int8, (cout, ksize * ksize * cin), 16)
+    _build.check_tensor("int8_conv_cuda", "m", m, dev, torch.float32, (cout,), 8)
+    _build.check_tensor("int8_conv_cuda", "b", b, dev, torch.float32, (cout,), 8)
+    rs = None
     if res is not None:
         if res.dtype not in _RES_KIND:
             raise ValueError(f"int8_conv_cuda: residual dtype {res.dtype}, expected "
                              "int8, float32 or bfloat16")
-        _check("res", res, x.device, res.dtype, (N, ho, wo, cout))
+        _build.check_tensor("int8_conv_cuda", "res", res, dev, res.dtype, (N, ho, wo, cout), 16)
         if res.dtype == torch.int8:
             if r is None:
                 raise ValueError("int8_conv_cuda: an int8 residual needs its scale r")
-            _check("r", r.reshape(1), x.device, torch.float32, (1,))
-    # x, w and the residual are copied in chunks of up to 16 bytes; m and b
-    # are read as pairs of neighbouring channels
-    for name, t, align in (("x", x, 16), ("w", w, 16), ("res", res, 16), ("m", m, 8),
-                           ("b", b, 8)):
-        if t is not None and t.data_ptr() % align:
-            raise ValueError(f"int8_conv_cuda: {name} is not {align}-byte aligned")
+            rs = r.reshape(1)
+            _build.check_tensor("int8_conv_cuda", "r", rs, dev, torch.float32, (1,))
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (m, b, res)):
         raise RuntimeError("int8_conv_cuda has no backward")
@@ -196,7 +182,6 @@ def int8_conv_cuda(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor,
     out_q = torch.empty_like(out, dtype=torch.int8) if dual else None
     if out.numel():
         fn = _build.function("int8_conv", "airpose_int8_conv", 8, 10, 1)
-        rs = r if res is not None and res.dtype == torch.int8 else None
         kind = _OUT_KIND[out_dtype] if qscale is None else _OUT_QUANT[out_dtype]
         args = (x.data_ptr(), w.data_ptr(), m.data_ptr(), b.data_ptr(),
                 None if res is None else res.data_ptr(),
@@ -205,16 +190,5 @@ def int8_conv_cuda(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor,
                 N, H, W, cin, cout, ksize, stride, int(relu),
                 _RES_KIND[None if res is None else res.dtype], kind,
                 0.0 if qscale is None else qscale)
-        # The trunk makes 52 of these calls per step and its later layers wait
-        # on the host, so the launch skips the device guard and the Stream
-        # object where it can.
-        dev = x.device.index
-        if dev == torch.cuda.current_device():
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
-        else:
-            with torch.cuda.device(dev):
-                err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
-        _build.check(err, "int8_conv")
-        with _build.count_lock:
-            launches += 1
+        _build.launch(fn, args, dev, "int8_conv")
     return (out, out_q) if dual else out

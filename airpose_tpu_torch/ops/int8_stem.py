@@ -29,8 +29,6 @@ from torch.nn import functional as F
 
 from . import _build
 
-launches = 0  # kernel launches since the last reset (a plain integer)
-
 BF16 = torch.bfloat16
 
 
@@ -136,31 +134,21 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def stem_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the kernel once; raises on anything it does not take."""
-    global launches
     if x.device.type != "cuda":
         raise ValueError(f"stem_cuda: x is on {x.device}, not CUDA")
     if x.ndim != 4 or x.shape[-1] != 3:
         raise ValueError(f"stem_cuda: x has shape {tuple(x.shape)}, expected (N, H, W, 3)")
-    if w.device != x.device or w.dtype != BF16 or tuple(w.shape) != (64, 3, 7, 7):
-        raise ValueError(f"stem_cuda: w is {w.dtype} {tuple(w.shape)} on {w.device}, "
-                         f"expected bfloat16 (64, 3, 7, 7) on {x.device}")
-    if b.device != x.device or b.dtype != torch.float32 or tuple(b.shape) != (64,):
-        raise ValueError(f"stem_cuda: b is {b.dtype} {tuple(b.shape)} on {b.device}, "
-                         f"expected float32 (64,) on {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
         raise RuntimeError("stem_cuda has no backward")
     # the kernel reads f32 and rounds to bf16 itself; bf16 → f32 is exact
     x, w, b = _aligned(x.float()), _aligned(w), b.contiguous()
+    _build.check_tensor("stem_cuda", "w", w, x.device, BF16, (64, 3, 7, 7))
+    _build.check_tensor("stem_cuda", "b", b, x.device, torch.float32, (64,))
     N, H, W, _ = x.shape
     out = torch.empty((N, out_size(out_size(H)), out_size(out_size(W)), 64), dtype=BF16,
                       device=x.device)
     if out.numel():
         fn = _build.function("int8_stem", "airpose_int8_stem", 4, 3)
-        dev = x.device.index
-        with torch.cuda.device(dev):
-            err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), N, H, W,
-                     torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "int8_stem")
-        with _build.count_lock:
-            launches += 1
+        _build.launch(fn, (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), N, H, W),
+                      x.device, "int8_stem")
     return out

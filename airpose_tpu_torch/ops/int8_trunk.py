@@ -44,8 +44,6 @@ from .int8_stem import stem as stem_fn
 BF16 = torch.bfloat16
 STAGES = (3, 4, 6, 3)
 
-quantize_calls = 0  # torch _quantize_act calls since the last reset (a plain integer)
-
 
 def quantize_weight(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(Cout, K) f32 → (int8 (Cout, K), (Cout,) f32 scale), symmetric per
@@ -61,10 +59,9 @@ def _quantize_act(x: torch.Tensor, s=None, clip_collect: Optional[Dict] = None,
     """Per-tensor symmetric int8 of ``x`` in f32, rounding half to even →
     (int8 NHWC contiguous, scale). ``s=None`` takes the dynamic scale
     max|x|/127; with a static ``s``, ``clip_collect[name]`` records the
-    fraction of values beyond 127.5·s, which the clip changes."""
-    global quantize_calls
-    with _build.count_lock:
-        quantize_calls += 1
+    fraction of values beyond 127.5·s, which the clip changes. Each call
+    counts one ``quantize_act`` in ``_build.counts``."""
+    _build.count("quantize_act")
     x = x.float()
     if s is None:
         s = (x.abs().amax() / 127.0).clamp_min(1e-12)

@@ -15,8 +15,8 @@ bench.py:109-125):
   5. cam_frame_and_project.
 
 Each stage runs inside a profiler span (``utils.profiling.span``: trunk,
-ief, smplx, project, and the trunk's own spans inside it), which
-``profile_chain.py`` reads; without an active profiler a span is one flag
+ief, smplx, project, and the trunk's own spans inside it), which the
+benchmark's traced run reads; without an active profiler a span is one flag
 check.
 
 ``perceive_hmr2`` runs HMR 2.0 (models/hmr2.py) on the same batches: both

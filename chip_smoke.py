@@ -13,8 +13,8 @@ Phases, each of which exits non-zero on failure:
      BN statistics perturbed from a seed, with timings;
   4. the bf16 perception chain at B = 64 frames (128 crops of 224²), full
      synthetic SMPL-X: both kernels must launch, outputs must be finite
-     and agree with the same chain through the plain versions, then
-     two_view_fps from CUDA events;
+     and agree with the same chain through the plain versions (the
+     benchmark's perceive_bf16_b64 times this chain);
   5. the int8 conv kernel vs its plain version, exact, in every epilogue
      mode (the static trunk's requant at the next conv's scale, int8 alone
      and bf16 + int8, among them) at layer1's 3×3 (128, 56, 56, 64) and
@@ -35,7 +35,7 @@ Phases, each of which exits non-zero on failure:
      once (the stem's output), outputs must be finite, each trunk's
      features must equal those of its plain version and each chain agree
      with its plain chain, the features must correlate > 0.9 with the bf16
-     trunk's; then two_view_fps of each;
+     trunk's (the benchmark's perceive_int8_b64 times the int8 chain);
   8. the training step of record (make_twoview_step_fns, TrainConfig()
      defaults: AMSGrad at lr 5e-5, 3 IEF steps, dropout) on the bf16
      AirPoseTwoView at B = 30 frames of 224² from make_synthetic_dataset,
@@ -225,11 +225,8 @@ from unittest import mock
 import numpy as np
 import torch
 
-# Published H100 SXM peaks at 700 W (NVIDIA data sheet): the bounds below.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12      # CUDA cores, no tensor cores
-BF16_FLOP_PER_S = 989e12    # dense tensor cores
-INT8_OP_PER_S = 1979e12     # dense tensor cores
+# The bounds below divide by the published H100 SXM peaks at 700 W, kept in the benchmark.
+from benchmark.roofline.peaks import BF16_FLOPS, FP32_FLOPS, HBM_BYTES, INT8_OPS
 
 SKIN_ATOL = 2e-5            # tests/test_pallas_lbs.py's bound for the TPU kernel
 STAGE_TOL = 0.05            # atol = rtol, tests/test_fused_bottleneck.py's bound
@@ -413,7 +410,7 @@ def time_ms(fn, iters=20, warmup=3):
 
 
 def bound(n_bytes, flops, flop_rate):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flop_rate
+    t_bytes, t_ops = n_bytes / HBM_BYTES, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -463,7 +460,7 @@ def skinning_at(w, a, p):
     sgemm_ms = time_ms(lambda: torch.mm(w, a12), iters=50, warmup=5)
     n_bytes = 4 * (w.numel() + a.numel() + p.numel() + got.numel())
     flops = B * V * (J * 12 * 2 + 18)
-    bound_ms, bound_by = bound(n_bytes, flops, F32_FLOP_PER_S)
+    bound_ms, bound_by = bound(n_bytes, flops, FP32_FLOPS)
     log(f"skinning B={B}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; "
         f"{paced_ms:.4f} ms a call when the host paces the launches), "
         f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms (einsum pair), "
@@ -557,7 +554,7 @@ def phase_stage1(dev):
                           + 2 * (256 * 64 + 9 * 64 * 64 + 64 * 256))
     n_bytes = (x.numel() + got.numel()) * 2 + sum(
         t.numel() * t.element_size() for blk in ops for t in blk.values())
-    bound_ms, bound_by = bound(n_bytes, flops, BF16_FLOP_PER_S)
+    bound_ms, bound_by = bound(n_bytes, flops, BF16_FLOPS)
     log(f"fused_stage1: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
         f"{flops / ms / 1e9:.1f} TFLOP/s")
@@ -569,19 +566,17 @@ def phase_stage1(dev):
 
 
 def phase_chain(dev):
-    from airpose_tpu_torch.bench import two_view_fps
-    from airpose_tpu_torch.bodymodel import cuda_lbs
-    from airpose_tpu_torch.ops import fused_bottleneck as fb
+    from airpose_tpu_torch.ops import _build
     from airpose_tpu_torch.perception import bench_inputs, build_perception, perceive
 
     B = 64
     model, smplx_params, features = build_perception(dev, trunk="bf16")
     inputs = bench_inputs(B, dev)
 
-    cuda_lbs.launches = fb.launches = 0
+    _build.counts.clear()
     verts, j2d = perceive(model, smplx_params, *inputs, features)
     torch.cuda.synchronize()
-    launches = {"lbs_skinning": cuda_lbs.launches, "fused_stage1": fb.launches}
+    launches = {k: _build.counts[k] for k in ("lbs_skinning", "fused_stage1")}
     log(f"chain: launches {launches}")
     check(all(n > 0 for n in launches.values()), f"a kernel of the path did not launch: {launches}")
     check(tuple(verts.shape) == (B, 2, 10475, 3) and tuple(j2d.shape) == (B, 2, 127, 2),
@@ -594,12 +589,7 @@ def phase_chain(dev):
            for k, a, b in (("verts", verts, v_ref), ("j2d", j2d, j_ref))}
     log(f"chain vs plain chain: rel-L2 {rel} (bound {CHAIN_REL_L2})")
     check(all(r < CHAIN_REL_L2 for r in rel.values()), f"chain disagrees with the plain chain: {rel}")
-
-    runs = two_view_fps(model, smplx_params, features, inputs)
-    fps = float(np.median(runs))
-    log(f"chain: two_view_fps median {fps:.1f} over {len(runs)} repeats "
-        f"(min {min(runs):.1f}, max {max(runs):.1f}) at B={B}")
-    return launches, fps
+    return launches
 
 
 def int_mm_conv(x, w, m, b, ksize, stride=1, res=None, r=None, relu=False,
@@ -678,7 +668,7 @@ def phase_int8_conv(dev, qparams, act_scales, crops):
             library_ms = time_ms(lambda: int_mm_conv(x, w, m, b, ksize, stride, **kw))
             n_ops, n_bytes = ic.conv_cost(x, w, ksize, stride, kw.get("res"), kw["out_dtype"],
                                        kw.get("qscale"))
-            bound_ms, bound_by = bound(n_bytes, n_ops, INT8_OP_PER_S)
+            bound_ms, bound_by = bound(n_bytes, n_ops, INT8_OPS)
             log(f"int8_conv {name} {(N, H, W, cin)}→{cout} {mode}: kernel {ms:.4f} ms "
                 f"({n_ops / ms / 1e9:.1f} TOPS), plain {plain_ms:.4f} ms, "
                 f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
@@ -717,7 +707,7 @@ def phase_int8_conv(dev, qparams, act_scales, crops):
         o, nb = ic.conv_cost(x, w, ksize, stride, kw.get("res"), kw["out_dtype"],
                           kw.get("qscale"))
         n_ops, n_bytes = n_ops + o, n_bytes + nb
-    bound_ms, bound_by = bound(n_bytes, n_ops, INT8_OP_PER_S)
+    bound_ms, bound_by = bound(n_bytes, n_ops, INT8_OPS)
     log(f"int8_conv: 52 convs at 128 crops: {n_ops / 1e9:.1f} GOP, {n_bytes / 1e9:.3f} GB; "
         f"kernel {ms:.4f} ms ({n_ops / ms / 1e9:.1f} TOPS), plain {plain_ms:.4f} ms, "
         f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
@@ -771,7 +761,7 @@ def stem_at(w, b, x):
     library_ms = time_ms(lambda: F.conv2d(xb, w, stride=2, padding=3), iters=50, warmup=5)
     composed_ms = time_ms(composed, iters=50, warmup=5)
     flops, n_bytes = st.stem_cost(x)
-    bound_ms, bound_by = bound(n_bytes, flops, BF16_FLOP_PER_S)
+    bound_ms, bound_by = bound(n_bytes, flops, BF16_FLOPS)
     log(f"int8 stem at {n} crops: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
         f"{n_bytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, library {library_ms:.4f} ms "
         f"(cuDNN's conv alone), composed library route {composed_ms:.4f} ms (cuDNN's conv, "
@@ -854,7 +844,7 @@ def phase_int8_blocks(dev, model, blocks, crops):
     plain_ms = time_ms(lambda: chain(ib.int8_block_reference), iters=2, warmup=1)
     library_ms = time_ms(lambda: chain(lambda x, blk: ib.run_block(int_mm_conv, x, blk)),
                          iters=10)
-    bound_ms, bound_by = bound(n_bytes, n_ops, INT8_OP_PER_S)
+    bound_ms, bound_by = bound(n_bytes, n_ops, INT8_OPS)
     log(f"int8_block: 13 blocks at {crops.shape[0]} crops: {n_ops / 1e9:.1f} GOP, "
         f"{n_bytes / 1e9:.3f} GB; kernel {ms:.4f} ms ({n_ops / ms / 1e9:.1f} TOPS), "
         f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
@@ -871,32 +861,26 @@ def phase_int8_chains(dev, model, smplx_params, chains, inputs, bf16_features):
     the counters at 0, against its plain chain and the bf16 trunk.
     ``chains``: (name, features, int8 conv launches, int8_block calls,
     torch quantize calls of the int8 trunk)."""
-    from airpose_tpu_torch.bench import two_view_fps
-    from airpose_tpu_torch.bodymodel import cuda_lbs
-    from airpose_tpu_torch.ops import int8_bottleneck as ib
-    from airpose_tpu_torch.ops import int8_conv as ic
-    from airpose_tpu_torch.ops import int8_stem as st
-    from airpose_tpu_torch.ops import int8_trunk as it
+    from airpose_tpu_torch.ops import _build
     from airpose_tpu_torch.perception import perceive
 
     B = inputs[0].shape[0]
     crops = inputs[0].reshape((B * 2,) + inputs[0].shape[2:])
     with torch.no_grad():
         xf_bf16 = bf16_features(crops)
-    launches, fps = {}, {}
+    launches = {}
     for name, features, n_conv, n_block, n_quant in chains:
-        cuda_lbs.launches = ic.launches = ib.launches = it.quantize_calls = st.launches = 0
+        _build.counts.clear()
         verts, j2d = perceive(model, smplx_params, *inputs, features)
         torch.cuda.synchronize()
-        n = {"int8_conv": ic.launches, "int8_block calls": ib.launches,
-             "lbs_skinning": cuda_lbs.launches, "torch quantize calls": it.quantize_calls,
-             "int8_stem": st.launches}
+        n = {k: _build.counts[k] for k in ("int8_conv", "int8_block", "lbs_skinning",
+                                          "quantize_act", "int8_stem")}
         log(f"{name} chain: launches {n}")
         # the int8 trunk's stem is the stem kernel (one launch a trunk call);
         # the int8-block chain runs the bf16 trunk's own stem and layer1
         n_stem = n_conv // 52
-        check(n == {"int8_conv": n_conv, "int8_block calls": n_block, "lbs_skinning": 1,
-                    "torch quantize calls": n_quant, "int8_stem": n_stem},
+        check(n == {"int8_conv": n_conv, "int8_block": n_block, "lbs_skinning": 1,
+                    "quantize_act": n_quant, "int8_stem": n_stem},
               f"the {name} path launched {n}, expected {n_conv} int8 conv launches, "
               f"{n_block} int8_block calls, 1 skinning launch, {n_quant} torch "
               f"quantize calls and {n_stem} stem launches")
@@ -922,11 +906,7 @@ def phase_int8_chains(dev, model, smplx_params, chains, inputs, bf16_features):
         log(f"{name} trunk vs bf16 trunk: feature corr {corr:.6f}, rel-L2 {feat_rel:.4f} "
             f"(bound corr > {FEATURE_CORR})")
         check(corr > FEATURE_CORR, f"{name} features correlate {corr} with the bf16 trunk's")
-        runs = two_view_fps(model, smplx_params, features, inputs)
-        fps[name] = float(np.median(runs))
-        log(f"{name} chain: two_view_fps median {fps[name]:.1f} over {len(runs)} repeats "
-            f"(min {min(runs):.1f}, max {max(runs):.1f}) at B={B}")
-    return launches, fps
+    return launches
 
 
 def skinning_backward_at(w, a, p):
@@ -953,7 +933,7 @@ def skinning_backward_at(w, a, p):
     plain_ms = time_ms(lambda: torch.autograd.grad(ref_out, (a, p), g, retain_graph=True))
     n_bytes = 4 * (w.numel() + 2 * a.numel() + 2 * p.numel() + g.numel())
     flops = 2 * V * J * B * 9 + 2 * B * V * 9 + B * V * 12 + 2 * J * V * B * 12
-    bound_ms, bound_by = bound(n_bytes, flops, F32_FLOP_PER_S)
+    bound_ms, bound_by = bound(n_bytes, flops, FP32_FLOPS)
     log(f"skinning backward B={B}: {ms:.4f} ms (torch ops: two SGEMMs and elementwise "
         f"passes; {paced_ms:.4f} ms a call when the host paces the launches), autograd of "
         f"the einsum pair {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -1063,10 +1043,11 @@ def phase_train(dev):
     from torch.profiler import record_function
 
     import airpose_tpu_torch.train.loop as loop
-    from airpose_tpu_torch.bodymodel import cuda_lbs, synthetic_smplx_params
+    from airpose_tpu_torch.bodymodel import synthetic_smplx_params
     from airpose_tpu_torch.config import TrainConfig
     from airpose_tpu_torch.data import batch_slice, make_synthetic_dataset
     from airpose_tpu_torch.models import AirPoseTwoView
+    from airpose_tpu_torch.ops import _build
     from airpose_tpu_torch.train import create_train_state, make_twoview_step_fns
 
     cfg = TrainConfig()
@@ -1111,12 +1092,12 @@ def phase_train(dev):
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     losses, launches = [], set()
     for i in range(TRAIN_STEPS):
-        cuda_lbs.launches = 0
+        _build.counts.clear()
         state, metrics = train_step(state, batch, gen)
         losses.append(metrics["loss"].item())
-        launches.add(cuda_lbs.launches)
-        check(cuda_lbs.launches == 1,
-              f"train step {i} launched skinning {cuda_lbs.launches} times, expected 1")
+        n = _build.counts["lbs_skinning"]
+        launches.add(n)
+        check(n == 1, f"train step {i} launched skinning {n} times, expected 1")
     log(f"train: {TRAIN_STEPS} steps at B={B}, losses {[round(x, 1) for x in losses]}")
     check(bool(np.isfinite(losses).all()), "non-finite training loss")
     check(np.mean(losses[-5:]) < np.mean(losses[:3]),
@@ -1152,8 +1133,8 @@ def phase_train(dev):
         spans[name] += start.elapsed_time(stop) / n_spans
     # busy: the device time of every kernel and copy of 3 steps under the
     # profiler (the record_function spans' device-side ranges are not work);
-    # idle share = 1 − busy / wall, wall from the unprofiled steps, as
-    # profile_chain does (the profiler slows the host)
+    # idle share = 1 − busy / wall, wall from the unprofiled steps (the
+    # profiler slows the host)
     n_prof = 3
     device_events, prof_ms = device_work(lambda: train_step(state, batch, gen), n_prof)
     busy_ms = sum(e.time_range.elapsed_us() for e in device_events) / 1e3 / n_prof
@@ -1181,15 +1162,15 @@ def phase_eval_metrics(smplx_params, batch, preds):
     """Phase 9, check 3: twoview_eval_metrics of eval_step's predictions
     against the batch's GT, with the skinning kernel (two launches: the
     predicted and the GT bodies, 2·B each) and with the plain version."""
-    from airpose_tpu_torch.bodymodel import cuda_lbs
     from airpose_tpu_torch.eval import twoview_eval_metrics
+    from airpose_tpu_torch.ops import _build
 
     args = (smplx_params, preds["pred_rotmat"], preds["pred_betas"], preds["pred_trans"],
             batch["gt_pose_rotmat"], batch["gt_orient"], batch["gt_betas"], batch["gt_trans"])
-    cuda_lbs.launches = 0
+    _build.counts.clear()
     got = twoview_eval_metrics(*args)
     torch.cuda.synchronize()
-    launches = cuda_lbs.launches
+    launches = _build.counts["lbs_skinning"]
     check(launches == 2, f"twoview_eval_metrics launched skinning {launches} times, expected 2")
     want = twoview_eval_metrics(*args, use_kernels=False)
     got, want = ({k: v.item() for k, v in m.items()} for m in (got, want))
@@ -1208,9 +1189,9 @@ def phase_families(dev, smplx_params, batch, steps=FAMILY_STEPS):
     then ``steps`` steps each launching skinning once (every family's loss
     makes one SMPL-X call: B bodies for hmr and copenet_singleview, 2·B
     folded for muhmr and the per-drone model), the loss falling."""
-    from airpose_tpu_torch.bodymodel import cuda_lbs
     from airpose_tpu_torch.config import TrainConfig
     from airpose_tpu_torch.models import MODEL_REGISTRY
+    from airpose_tpu_torch.ops import _build
     from airpose_tpu_torch.train import create_train_state
 
     B = batch["images"].shape[0]
@@ -1227,11 +1208,11 @@ def phase_families(dev, smplx_params, batch, steps=FAMILY_STEPS):
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         losses = []
         for i in range(steps):
-            cuda_lbs.launches = 0
+            _build.counts.clear()
             state, metrics = train_step(state, batch, gen)
             losses.append(metrics["loss"].item())
-            check(cuda_lbs.launches == 1, f"{family} train step {i} launched skinning "
-                  f"{cuda_lbs.launches} times, expected 1")
+            n = _build.counts["lbs_skinning"]
+            check(n == 1, f"{family} train step {i} launched skinning {n} times, expected 1")
         check(bool(np.isfinite(losses).all()), f"non-finite {family} training loss {losses}")
         check(np.mean(losses[-3:]) < np.mean(losses[:3]),
               f"{family} training loss did not fall: {losses}")
@@ -1256,8 +1237,7 @@ def phase_sep_serving(dev, batch):
     against the fused forward."""
     from airpose_tpu_torch import constants as C
     from airpose_tpu_torch.models import AirPoseTwoViewSep, AirPoseTwoViewSepView, mean_init_state
-    from airpose_tpu_torch.ops import int8_conv as ic
-    from airpose_tpu_torch.ops import int8_stem as st
+    from airpose_tpu_torch.ops import _build
     from airpose_tpu_torch.ops import int8_trunk as it
 
     images, bb = batch["images"], batch["bb"]
@@ -1265,13 +1245,12 @@ def phase_sep_serving(dev, batch):
     pos = torch.full_like(bb, 10.0 * C.TRANS_SCALE)
     model = AirPoseTwoViewSep(dtype=torch.bfloat16, seed=0).to(dev)
     shim = it.Int8Inference(model, images[0])
-    ic.launches = it.quantize_calls = st.launches = 0
+    _build.counts.clear()
     out = shim.apply(images, bb, pos)
     torch.cuda.synchronize()
-    n = {"int8_conv": ic.launches, "torch quantize calls": it.quantize_calls,
-         "int8_stem": st.launches}
+    n = {k: _build.counts[k] for k in ("int8_conv", "quantize_act", "int8_stem")}
     log(f"_sep int8 inference at B={B}: launches {n}")
-    check(n == {"int8_conv": 104, "torch quantize calls": 2, "int8_stem": 2},
+    check(n == {"int8_conv": 104, "quantize_act": 2, "int8_stem": 2},
           f"_sep int8 inference launched {n}, expected 104 int8 conv launches, 2 torch "
           "quantize calls and 2 stem launches")
     check(bool(torch.isfinite(out.pose).all() and torch.isfinite(out.betas).all()),
@@ -1355,26 +1334,20 @@ def write_smplx_npz(directory):
              lmk_bary_coords=p.lmk_bary.numpy())
 
 
-def kernel_counts():
-    from airpose_tpu_torch.bodymodel import cuda_lbs
-    from airpose_tpu_torch.ops import add_layernorm as aln
-    from airpose_tpu_torch.ops import fused_bottleneck as fb
-    from airpose_tpu_torch.ops import int8_conv as ic
-    from airpose_tpu_torch.ops import int8_stem as st
+KERNELS = ("lbs_skinning", "fused_stage1", "int8_conv", "int8_stem", "add_layernorm")
 
-    return {"lbs_skinning": cuda_lbs.launches, "fused_stage1": fb.launches,
-            "int8_conv": ic.launches, "int8_stem": st.launches,
-            "add_layernorm": aln.launches}
+
+def kernel_counts():
+    """Launches of each hand-written kernel since the last reset."""
+    from airpose_tpu_torch.ops import _build
+
+    return {k: _build.counts[k] for k in KERNELS}
 
 
 def reset_kernel_counts():
-    from airpose_tpu_torch.bodymodel import cuda_lbs
-    from airpose_tpu_torch.ops import add_layernorm as aln
-    from airpose_tpu_torch.ops import fused_bottleneck as fb
-    from airpose_tpu_torch.ops import int8_conv as ic
-    from airpose_tpu_torch.ops import int8_stem as st
+    from airpose_tpu_torch.ops import _build
 
-    cuda_lbs.launches = fb.launches = ic.launches = st.launches = aln.launches = 0
+    _build.counts.clear()
 
 
 class CliRun:
@@ -2737,7 +2710,7 @@ def serving_kernels(dev, reg, crop):
         o, nb = ic.conv_cost(x, w, ksize, stride, kw.get("res"), kw["out_dtype"],
                              kw.get("qscale"))
         n_ops, n_bytes = n_ops + o, n_bytes + nb
-    bound_ms, bound_by = bound(n_bytes, n_ops, INT8_OP_PER_S)
+    bound_ms, bound_by = bound(n_bytes, n_ops, INT8_OPS)
     rows = sorted({ic.out_size(a[0].shape[1], a[4], a[5]) * ic.out_size(a[0].shape[2], a[4], a[5])
                    for a, _ in calls})
     log(f"int8_conv at 1 crop of 224² (GEMM rows M from {rows[0]} to {rows[-1]}): the 52 "
@@ -3559,15 +3532,13 @@ def train_job(argv, ckpt, runs):
     \"\"\"A trainer job that checkpoints and exits 3 on its first run (no
     checkpoint yet: --time_to_run 0) and finishes on its requeued run; ->
     the kernel launches of the run that finished.\"\"\"
-    from airpose_tpu_torch.bodymodel import cuda_lbs
-    from airpose_tpu_torch.ops import int8_conv, int8_stem
+    from airpose_tpu_torch.ops import _build
     from airpose_tpu_torch.train import trainer
 
     with open(runs, "a") as f:
         f.write("run\\n")
     trainer.main(argv + ([] if os.path.exists(ckpt) else ["--time_to_run", "0"]))
-    return {"lbs_skinning": cuda_lbs.launches, "int8_conv": int8_conv.launches,
-            "int8_stem": int8_stem.launches}
+    return {k: _build.counts[k] for k in ("lbs_skinning", "int8_conv", "int8_stem")}
 """
 
 
@@ -3893,7 +3864,7 @@ def add_layernorm_at(dev, rows=128 * 192, width=1280):
         iters=50, warmup=5)
     out["library_ms"] = time_ms(lambda: F.layer_norm(x, (width,), w, b, 1e-6), iters=50,
                                 warmup=5)
-    out["bound_ms"] = aln.add_layernorm_cost(x, branch, torch.bfloat16) / HBM_BYTES_PER_S * 1e3
+    out["bound_ms"] = aln.add_layernorm_cost(x, branch, torch.bfloat16) / HBM_BYTES * 1e3
     out["ptxas"] = ptxas_lines(_build.build_log.get("add_layernorm", ""), "add_layernorm")
     log(f"add_layernorm ({rows}, {width}): kernel {out['ms']:.4f} ms, plain three ops "
         f"{out['plain_ms']:.4f} ms, F.layer_norm alone {out['library_ms']:.4f} ms, bound "
@@ -3910,6 +3881,7 @@ def phase_hmr2(dev, card):
 
     from airpose_tpu_torch.bodymodel import cuda_lbs, synthetic_smpl_params
     from airpose_tpu_torch.models import vit as vit_mod
+    from airpose_tpu_torch.ops import _build
     from airpose_tpu_torch.ops import add_layernorm as aln
     from airpose_tpu_torch.perception import perceive_hmr2
     from benchmark.drivers import worst_ray_angle, worst_row_cos_gap, worst_row_rel_l2
@@ -3947,12 +3919,13 @@ def phase_hmr2(dev, card):
     b = perception_pool(13, 1, 64, cfg["crop"], dev)[0]
     seen = {}
     model.backbone.register_forward_hook(lambda m, a, o: seen.update(tokens=o))
-    calls, launches, norms = model.attention_calls, cuda_lbs.launches, aln.launches
+    calls, launches, norms = (model.attention_calls, _build.counts["lbs_skinning"],
+                              _build.counts["add_layernorm"])
     verts, j2d = perceive_hmr2(model, smpl, b["images"], b["bb"], b["intr"])
     torch.cuda.synchronize()
     out["attention_calls_a_call"] = model.attention_calls - calls
-    out["skinning_launches_a_call"] = cuda_lbs.launches - launches
-    out["add_layernorm_launches_a_call"] = aln.launches - norms
+    out["skinning_launches_a_call"] = _build.counts["lbs_skinning"] - launches
+    out["add_layernorm_launches_a_call"] = _build.counts["add_layernorm"] - norms
     check(out["attention_calls_a_call"] == 44, f"attention calls a call: {out}")
     check(out["skinning_launches_a_call"] == 1, f"skinning launches a call: {out}")
     check(out["add_layernorm_launches_a_call"] == 2 * model.backbone.cfg.depth + 1,
@@ -4026,7 +3999,7 @@ def main():
         return 0
 
     kernels = [phase_skinning(dev), phase_stage1(dev)]
-    launches, fps = phase_chain(dev)
+    launches = phase_chain(dev)
 
     from airpose_tpu_torch.ops.int8_bottleneck import (quantize_trunk_blocks,
                                                        resnet50_int8_block_infer)
@@ -4041,12 +4014,10 @@ def main():
     kernels.append(phase_int8_conv(dev, qparams, act_scales, crops))
     kernels.append(phase_stem(dev, qparams, crops))
     kernels.append(phase_int8_blocks(dev, model, blocks, crops))
-    int8_launches, int8_fps = phase_int8_chains(
+    int8_launches = phase_int8_chains(
         dev, model, smplx_params,
         (("int8", int8_features, 52, 0, 1), ("int8_block", block_features, 42, 13, 0)),
         inputs, chain_ops(model, "bf16"))
-    log(f"two_view_fps: bf16 {fps:.1f}, int8 {int8_fps['int8']:.1f}, "
-        f"int8_block {int8_fps['int8_block']:.1f}")
     del model, smplx_params, int8_features, qparams, blocks, block_features, inputs, crops
     torch.cuda.empty_cache()
     kernels[0]["backward"], train, (smplx_params, batch, preds) = phase_train(dev)
@@ -4120,7 +4091,7 @@ def main():
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "int8_block":
-            k["blocks"] = int8_launches["int8_block"]["int8_block calls"]
+            k["blocks"] = int8_launches["int8_block"]["int8_block"]
     # launches on phase 9's paths: skinning once a train step of each family
     # and twice in the eval metrics, the int8 conv in the _sep int8 inference
     kernels[0]["phase9_launches"] = {

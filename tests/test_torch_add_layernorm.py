@@ -19,6 +19,7 @@ import torch
 from torch.nn import functional as F
 
 from airpose_tpu_torch.models.vit import ViT, ViTConfig
+from airpose_tpu_torch.ops import _build
 from airpose_tpu_torch.ops import add_layernorm as aln
 
 CFG = ViTConfig(img_size=(64, 48), width=64, depth=2, heads=4)
@@ -181,10 +182,10 @@ def test_kernel_matches_plain_version(cuda, rows, width, branch_dtype, out_dtype
     x, branch, w, b = operands(rows, width, branch_dtype, cuda, seed=rows)
     want_x = x.clone()
     want = aln.add_layernorm_reference(want_x, branch, w, b, 1e-6, out_dtype)
-    before = aln.launches
+    before = _build.counts["add_layernorm"]
     got = aln.add_layernorm(x, branch, w, b, 1e-6, out_dtype)
     torch.cuda.synchronize()
-    assert aln.launches == before + 1
+    assert _build.counts["add_layernorm"] == before + 1
     assert torch.equal(x, want_x)
     # the f32 rows differ by the order of the statistics' sums, within 2e-6 of
     # the largest output; rounded to bf16 that is one step, except on outputs
@@ -202,11 +203,11 @@ def test_kernel_matches_plain_version(cuda, rows, width, branch_dtype, out_dtype
 @pytest.mark.parametrize("dtype", [BF16, torch.float32])
 def test_vit_on_the_card_launches_each_norm_point_once(cuda, dtype):
     model, x = vit(dtype).to(cuda), crops().to(cuda)
-    before = aln.launches
+    before = _build.counts["add_layernorm"]
     with torch.no_grad():
         got = model(x)
         torch.cuda.synchronize()
-        assert aln.launches - before == 2 * CFG.depth + 1
+        assert _build.counts["add_layernorm"] - before == 2 * CFG.depth + 1
         want = forward_before_fusion(model, x)
     assert got.dtype == torch.float32
     assert float((got - want).norm() / want.norm()) < (1e-2 if dtype == BF16 else 1e-5)

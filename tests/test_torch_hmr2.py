@@ -25,6 +25,7 @@ from airpose_tpu_torch.geometry.rotations import batch_rodrigues
 from airpose_tpu_torch.models import MODEL_REGISTRY, HMR2, family_init_args
 from airpose_tpu_torch.models.hmr2 import DecoderConfig, pose_rotmats
 from airpose_tpu_torch.models.vit import ViTConfig
+from airpose_tpu_torch.ops import _build
 from airpose_tpu_torch.perception import cam_crop_to_full, perceive_hmr2
 from benchmark.inputs import perception_pool
 from benchmark.reference import hmr2 as ref
@@ -284,9 +285,9 @@ def test_skinning_kernel_at_smpl_shape(cuda):
     rel_tf = torch.eye(4, device="cuda").repeat(128, 24, 1, 1)
     rel_tf[:, :, :3] += 0.1 * torch.randn(128, 24, 3, 4, generator=g, device="cuda")
     v = torch.randn(128, 6890, 3, generator=g, device="cuda")
-    before = cuda_lbs.launches
+    before = _build.counts["lbs_skinning"]
     got = cuda_lbs.skinning(p.lbs_weights, rel_tf, v)
-    assert cuda_lbs.launches == before + 1
+    assert _build.counts["lbs_skinning"] == before + 1
     want = cuda_lbs.skinning_reference(p.lbs_weights, rel_tf, v)
     assert float((got - want).abs().max()) < 2e-5 * max(1.0, float(want.abs().max()))
     assert np.isfinite(got.cpu().numpy()).all()

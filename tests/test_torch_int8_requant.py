@@ -11,6 +11,7 @@ import torch
 
 from airpose_tpu.ops import int8_trunk as jq
 from airpose_tpu_torch.models.resnet import ResNet50
+from airpose_tpu_torch.ops import _build
 from airpose_tpu_torch.ops import int8_trunk as tq
 
 
@@ -104,7 +105,7 @@ def trunk_tables():
 def test_torch_quantize_calls(trunk_tables, case, calls):
     qp, scales, x = trunk_tables
     assert scales["layer1_0/proj"] == scales["layer1_0/conv1"]
-    tq.quantize_calls = 0
+    _build.counts.clear()
     if case == "dynamic":
         tq.resnet50_int8_infer(qp, x)
     elif case == "clip_rates":
@@ -116,7 +117,7 @@ def test_torch_quantize_calls(trunk_tables, case, calls):
             scales = dict(scales)
             scales["layer1_0/proj"] *= 1.25
         tq.resnet50_int8_infer(qp, x, scales)
-    assert tq.quantize_calls == calls
+    assert _build.counts["quantize_act"] == calls
 
 
 @pytest.mark.parametrize("stages", [(1, 2, 3, 4), (3, 4)])

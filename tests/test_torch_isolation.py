@@ -253,12 +253,12 @@ def test_kernel_build_from_two_threads_runs_once(monkeypatch, tmp_path):
 
 def test_launch_counters_lose_no_update():
     """Counted calls from many threads at once, switching often, all count:
-    int8_trunk.quantize_calls, incremented under the kernels' counter lock."""
+    _build.counts["quantize_act"], incremented under the counters' lock."""
     x = torch.ones(1, 2, 2, 1)
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        int8_trunk.quantize_calls = 0
+        _build.counts.clear()
 
         def work():
             for _ in range(200):
@@ -270,7 +270,7 @@ def test_launch_counters_lose_no_update():
         for t in threads:
             t.join(timeout=60)
         assert not any(t.is_alive() for t in threads)
-        assert int8_trunk.quantize_calls == 16 * 200
+        assert _build.counts["quantize_act"] == 16 * 200
     finally:
         sys.setswitchinterval(interval)
 

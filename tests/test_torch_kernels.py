@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, and the
-wrappers' input checks. Imports neither JAX nor airpose_tpu, so that on a
+"""The port's CUDA kernels against their plain PyTorch versions, the
+wrappers' input checks, and the one launch path's tensor check and launch
+counts (ops/_build.py). Imports neither JAX nor airpose_tpu, so that on a
 machine with a card (where JAX need not be installed) the tests run with
 
   python -m pytest tests/test_torch_kernels.py --noconftest -q
@@ -12,6 +13,8 @@ import torch
 
 from airpose_tpu_torch.bodymodel import cuda_lbs
 from airpose_tpu_torch.models.resnet import ResNet50
+from airpose_tpu_torch.ops import _build
+from airpose_tpu_torch.ops import add_layernorm as aln
 from airpose_tpu_torch.ops import fused_bottleneck as fb
 from airpose_tpu_torch.ops import int8_bottleneck as ib
 from airpose_tpu_torch.ops import int8_conv as ic
@@ -98,9 +101,9 @@ def test_fused_stage1_cuda_rejects_cpu_tensors(stage_ops):
 ])
 def test_skinning_kernel_matches_reference(cuda, V, B, J):
     w, a, p = _skin_inputs(V, B, J, cuda)
-    n = cuda_lbs.launches
+    n = _build.counts["lbs_skinning"]
     got = cuda_lbs.skinning(w, a, p)
-    assert cuda_lbs.launches == n + 1
+    assert _build.counts["lbs_skinning"] == n + 1
     torch.testing.assert_close(got, cuda_lbs.skinning_reference(w, a, p),
                                atol=2e-5, rtol=0)
 
@@ -118,9 +121,9 @@ def test_skinning_kernel_gradient(cuda, V, B, J):
     g = torch.from_numpy(np.random.default_rng(1).normal(size=(B, V, 3)).astype(np.float32)
                          ).to(cuda)
     a, p = a.requires_grad_(True), p.requires_grad_(True)
-    n = cuda_lbs.launches
+    n = _build.counts["lbs_skinning"]
     got = torch.autograd.grad(cuda_lbs.skinning(w, a, p), (a, p), g)
-    assert cuda_lbs.launches == n + 1
+    assert _build.counts["lbs_skinning"] == n + 1
     want = torch.autograd.grad(cuda_lbs.skinning_reference(w, a, p), (a, p), g)
     for x, y in zip(got, want):
         assert ((x - y).abs().max() / y.abs().max()).item() <= 1e-5
@@ -186,9 +189,9 @@ def test_fused_stage1_kernel_matches_reference(cuda, stage_ops, B, h, w):
     rng = np.random.default_rng(3)
     x = torch.from_numpy(np.abs(rng.normal(size=(B, h, w, 64))).astype(np.float32)
                          ).to(cuda, torch.bfloat16)
-    n = fb.launches
+    n = _build.counts["fused_stage1"]
     got = fb.fused_stage1(x, ops)
-    assert fb.launches == n + 3
+    assert _build.counts["fused_stage1"] == n + 3
     torch.testing.assert_close(got.float(), fb.fused_stage1_reference(x, ops).float(),
                                atol=0.05, rtol=0.05)
 
@@ -269,9 +272,9 @@ def test_int8_conv_kernel_matches_reference(cuda, N, H, W, cin, cout, ksize, str
     """Exact: integer accumulation and the same f32 operations, each
     rounded on its own."""
     t, kw = _int8_conv_inputs(N, H, W, cin, cout, ksize, stride, mode, cuda)
-    n = ic.launches
+    n = _build.counts["int8_conv"]
     got = ic.int8_conv(t["x"], t["w"], t["m"], t["b"], ksize, stride, **kw)
-    assert ic.launches == n + 1
+    assert _build.counts["int8_conv"] == n + 1
     want = ic.int8_conv_reference(t["x"], t["w"], t["m"], t["b"], ksize, stride, **kw)
     torch.cuda.synchronize()
     pairs = zip(got, want) if mode == "qconv_dual" else [(got, want)]
@@ -318,9 +321,10 @@ def test_int8_block_kernel_matches_reference(cuda, cin, cmid, cout, stride, out_
     blk = _int8_block_operands(cin, cmid, cout, stride, out_int8, cuda)
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.integers(0, 128, size=(4, hw, hw, cin)).astype(np.int8)).to(cuda)
-    nb, nc = ib.launches, ic.launches
+    nb, nc = _build.counts["int8_block"], _build.counts["int8_conv"]
     got = ib.int8_block(x, blk)
-    assert ib.launches == nb + 1 and ic.launches == nc + (4 if stride == 2 else 3)
+    assert _build.counts["int8_block"] == nb + 1
+    assert _build.counts["int8_conv"] == nc + (4 if stride == 2 else 3)
     want = ib.int8_block_reference(x, blk)
     torch.cuda.synchronize()
     assert got.dtype == (torch.int8 if out_int8 else torch.bfloat16)
@@ -417,3 +421,72 @@ def test_int8_stem_kernel_rejects_bad_inputs(cuda):
         st.stem_cuda(x, wt, b.double())
     with pytest.raises(ValueError, match="expected float32 \\(64,\\)"):
         st.stem_cuda(x, wt, b[:32])
+
+
+@pytest.mark.parametrize("case,match", [
+    ("device", "is on cpu, all inputs must be on one CUDA device \\(cuda:0\\)"),
+    ("dtype", "is float64 \\(64,\\), expected float32 \\(64,\\)"),
+    ("shape", "is float32 \\(32,\\), expected float32 \\(64,\\)"),
+    ("not_contiguous", "is not contiguous"),
+    ("misaligned", "is not 16-byte aligned"),
+], ids=["device", "dtype", "shape", "not_contiguous", "misaligned"])
+def test_check_tensor_rejects(case, match):
+    """The wrappers' one tensor check, on CPU tensors: a tensor that meets
+    every condition passes, and each way to fail raises a ValueError that
+    names the wrapper, then the operand."""
+    cpu = torch.device("cpu")
+    _build.check_tensor("wrapper", "b", torch.zeros(64), cpu, torch.float32, (64,), 16)
+    t, device = torch.zeros(64), cpu
+    if case == "device":
+        device = torch.device("cuda", 0)
+    elif case == "dtype":
+        t = t.double()
+    elif case == "shape":
+        t = torch.zeros(32)
+    elif case == "not_contiguous":
+        t = torch.zeros(64, 2)[:, 0]
+    elif case == "misaligned":
+        t = torch.zeros(65)[1:]
+    with pytest.raises(ValueError, match=f"^wrapper: b {match}$"):
+        _build.check_tensor("wrapper", "b", t, device, torch.float32, (64,), 16)
+
+
+def _dispatch_case(name, stage_ops):
+    """(dispatcher, its plain version, arguments on CPU tensors) of one kernel."""
+    if name == "skinning":
+        return cuda_lbs.skinning, cuda_lbs.skinning_reference, _skin_inputs(8, 2, 3, "cpu")
+    if name == "fused_stage1":
+        x = torch.rand(1, 4, 4, 64, generator=torch.Generator().manual_seed(0))
+        return fb.fused_stage1, fb.fused_stage1_reference, (x.to(torch.bfloat16), stage_ops)
+    if name == "int8_conv":
+        t, kw = _int8_conv_inputs(1, 4, 4, 32, 8, 3, 1, "block_end", "cpu")
+        return (ic.int8_conv, ic.int8_conv_reference,
+                (t["x"], t["w"], t["m"], t["b"], 3, 1, kw["res"], kw["r"], True))
+    if name == "int8_stem":
+        return st.stem, st.stem_reference, _stem_inputs(1, 16, 16, "cpu")
+    if name == "add_layernorm":
+        g = torch.Generator().manual_seed(0)
+        x, branch = torch.randn(4, 64, generator=g), torch.randn(4, 64, generator=g)
+        return (aln.add_layernorm, aln.add_layernorm_reference,
+                (x, branch.to(torch.bfloat16), torch.ones(64), torch.zeros(64), 1e-6,
+                 torch.bfloat16))
+    blk = _int8_block_operands(64, 32, 64, 2, True, "cpu")
+    x = torch.randint(0, 128, (1, 4, 4, 64), generator=torch.Generator().manual_seed(0))
+    return ib.int8_block, ib.int8_block_reference, (x.to(torch.int8), blk)
+
+
+@pytest.mark.parametrize("name", ["skinning", "fused_stage1", "int8_conv", "int8_stem",
+                                  "add_layernorm", "int8_block"])
+def test_cpu_dispatch_runs_the_plain_version_and_counts_nothing(name, stage_ops):
+    """Each kernel's dispatcher, on CPU tensors, gives its plain version's
+    output and leaves ``_build.counts`` as it was: only a launch, or an
+    int8_block call that launched, counts."""
+    fn, plain, args = _dispatch_case(name, stage_ops)
+
+    def fresh():  # add_layernorm updates its x in place
+        return [a.clone() if torch.is_tensor(a) else a for a in args]
+
+    before = _build.counts.copy()
+    got = fn(*fresh())
+    assert _build.counts == before
+    assert torch.equal(got, plain(*fresh()))

@@ -17,7 +17,7 @@ import torch
 from airpose_tpu_torch import constants as C
 from airpose_tpu_torch.models import MODEL_REGISTRY
 from airpose_tpu_torch.models.airpose import _regress_step
-from airpose_tpu_torch.ops import int8_conv
+from airpose_tpu_torch.ops import _build
 from airpose_tpu_torch.serve.staged import StagedRegressor, state_to_wire, wire_to_peer
 
 WIRE_ATOL = 1e-6
@@ -177,9 +177,9 @@ def test_counters_and_host_launches(cuda, model):
     img, bb, (art, shape) = frames(40, 1)[0]
     counts = []
     for _ in range(4):
-        n = int8_conv.launches
+        n = _build.counts["int8_conv"]
         reg.step1(img, bb, INIT)
-        counts.append(int8_conv.launches - n)
+        counts.append(_build.counts["int8_conv"] - n)
     assert counts == [3 * 52, 52, 0, 0]
     assert (reg.eager_calls, reg.graph_replays) == (1, 3)
     s = reg.step1(img, bb, INIT)
