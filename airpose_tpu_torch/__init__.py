@@ -47,6 +47,8 @@ CUDA device they raise. Pass ``device="cpu"`` to run the plain PyTorch
 versions of the kernels on the CPU, as the tests do.
 """
 
+import functools
+
 import torch
 
 # The JAX side runs geometry and SMPL-X at precision="highest"; TF32 would
@@ -65,3 +67,18 @@ def resolve_device(device=None) -> torch.device:
             "airpose_tpu_torch runs on a CUDA device and none is available; "
             "pass device='cpu' to run the plain PyTorch versions on the CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values, dtype, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def device_constant(values, dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)`` made once per
+    (values, dtype, device) and shared from then on: a number or a (nested)
+    tuple of numbers, e.g. an index table or a fixed row. A train step
+    replayed as a CUDA graph may copy nothing from the host, so its
+    constants are made at its first, eager call. Callers must not write to
+    the tensor."""
+    return _constant(values, dtype, torch.device(device))

@@ -15,6 +15,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from .. import device_constant
 from ..geometry.rotations import batch_rodrigues
 from .cuda_lbs import skinning, skinning_reference
 
@@ -62,18 +63,20 @@ def batch_rigid_transform(
     and skinning transforms relative to the rest pose (B, J, 4, 4).
     """
     B, J = joints.shape[:2]
+    dev = joints.device
     parents = tuple(int(p) for p in parents)
     rel = torch.cat(
-        [joints[:, :1], joints[:, 1:] - joints[:, list(parents[1:])]], dim=1)
+        [joints[:, :1], joints[:, 1:] - joints[:, device_constant(parents[1:], torch.int64, dev)]],
+        dim=1)
 
     top = torch.cat([rotmats, rel[..., None]], dim=-1)  # (B, J, 3, 4)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
-                          device=top.device).expand(B, J, 1, 4)
+    bottom = device_constant((0.0, 0.0, 0.0, 1.0), top.dtype, dev).expand(B, J, 1, 4)
     local = torch.cat([top, bottom], dim=-2)  # (B, J, 4, 4)
 
     world = local.clone()
     for js, ps in _tree_levels(parents):
-        world[:, list(js)] = torch.matmul(world[:, list(ps)], local[:, list(js)])
+        js, ps = (device_constant(t, torch.int64, dev) for t in (js, ps))
+        world[:, js] = torch.matmul(world[:, ps], local[:, js])
     posed_joints = world[..., :3, 3]
 
     # Relative-to-rest correction: A = G · [I | -j_rest].

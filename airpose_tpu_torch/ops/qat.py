@@ -14,6 +14,8 @@ from typing import Dict, Mapping
 
 import torch
 
+from .. import device_constant
+
 TRUNK_KEYS = ("trunk", "trunk0", "trunk1")
 
 
@@ -35,6 +37,8 @@ def fake_quant_act(x: torch.Tensor, levels: float = 127.0, scale=None) -> torch.
     if scale is None:
         s = torch.clamp(xf.detach().abs().amax() / levels, min=1e-12)
     else:
+        if not torch.is_tensor(scale):
+            scale = device_constant(float(scale), torch.float32, x.device)
         s = torch.clamp(torch.as_tensor(scale, dtype=torch.float32, device=x.device),
                         min=1e-12)
     q = torch.clamp(torch.round(xf.detach() / s), -levels, levels) * s

@@ -146,9 +146,11 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
 
 def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]) -> List[torch.Tensor]:
     """Each tensor's mean over ``mesh``'s data group, in one all-reduce per
-    dtype and device (the identity without a group)."""
+    dtype and device (the identity without a group or with a group of one,
+    so that a step at world size 1 holds no collective a CUDA graph would
+    capture)."""
     tensors = list(tensors)
-    if mesh is None or mesh.group is None:
+    if mesh is None or mesh.group is None or mesh.n_data == 1:
         return tensors
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     buckets: Dict = {}

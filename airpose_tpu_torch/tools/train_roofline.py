@@ -10,7 +10,9 @@ Method: each stage is a function carry → carry whose hot input depends on
 the carry, so every iteration computes from the last one's result. A
 stage runs a few warm-up iterations, then ``--length`` iterations between
 two CUDA events on the card (the host clock after a synchronize on the
-CPU); the result is seconds per iteration. Every stage works on its own
+CPU); the result is seconds per iteration. On the card the ``full``
+stage's train step is a CUDA graph from its second call (train/loop.py), so
+its timed iterations are replays. Every stage works on its own
 copy of the model and the optimizer state: the ``full``, ``fwd_train``,
 ``fwdbwd_*`` and ``opt`` stages update BatchNorm statistics or AMSGrad's
 state in place.
@@ -90,7 +92,10 @@ def remat_forward(trunk):
     def remat(x, part="full", train=False):
         if not torch.is_grad_enabled():
             return forward(x, part, train)
-        return checkpoint(run, x, part, train, [0], use_reentrant=False)
+        # the trunk draws no random numbers, and a step captured as a CUDA
+        # graph may not read the generator's state
+        return checkpoint(run, x, part, train, [0], use_reentrant=False,
+                          preserve_rng_state=False)
 
     return remat
 

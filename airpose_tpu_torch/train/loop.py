@@ -20,9 +20,13 @@ takes its rows of the batch (``parallel.shard_batch``), BatchNorm and the
 row-weighted means reduce over the data group, the gradients and metrics are
 averaged over it, and AMSGrad then runs on every rank alike. Without one (or
 at world size 1) a step is what it is in one process.
+On a card a train step's forward, loss and gradients replay as one CUDA
+graph once the step has seen the same batch layout, generator and tensors
+twice in a row (``_TrainStep``); a CPU step, or one under a mesh of more
+than one rank, always runs eagerly. AMSGrad runs eagerly either way.
 The train step's parts run inside profiler spans (``utils.profiling.span``:
-forward, backward, optimizer); without an active profiler a span is one
-flag check.
+forward, backward, optimizer; a replayed step forward_backward and
+optimizer); without an active profiler a span is one flag check.
 """
 
 from typing import Dict, Optional
@@ -30,7 +34,7 @@ from typing import Dict, Optional
 import torch
 from torch.func import functional_call
 
-from .. import resolve_device
+from .. import device_constant, resolve_device
 from ..bodymodel.smplx import SMPLXParams
 from ..bodymodel.vposer import VPoserParams
 from ..config import TrainConfig
@@ -69,7 +73,7 @@ def _input_trans(batch: Batch, cfg: TrainConfig,
     distance-scaled."""
     gt = _trans_gt(batch)
     if cfg.smpltrans_noise_sigma is None:
-        t = torch.tensor([0.0, 0.0, 10.0], dtype=gt.dtype, device=gt.device).expand(gt.shape)
+        t = device_constant((0.0, 0.0, 10.0), gt.dtype, gt.device).expand(gt.shape)
     else:
         noise = torch.randn(gt.shape, generator=generator, dtype=gt.dtype, device=gt.device)
         t = gt + cfg.smpltrans_noise_sigma * noise
@@ -80,7 +84,7 @@ def _eval_input_trans(batch: Batch, cfg: TrainConfig) -> torch.Tensor:
     """Eval-time IEF translation init, pinned to [0, 0, 10] whatever the
     train-time noise: evaluation is deterministic and never reads GT."""
     gt = _trans_gt(batch)
-    t = torch.tensor([0.0, 0.0, 10.0], dtype=gt.dtype, device=gt.device).expand(gt.shape)
+    t = device_constant((0.0, 0.0, 10.0), gt.dtype, gt.device).expand(gt.shape)
     return t * cfg.trans_scale
 
 
@@ -88,8 +92,106 @@ def _pinned_trans(batch: Batch, cfg: TrainConfig, generator=None) -> torch.Tenso
     """IEF translation init of the real-data steps, in train and eval:
     [0, 0, 10], distance-scaled (real batches carry no GT translation)."""
     images = batch["images"]
-    return torch.tensor([0.0, 0.0, 10.0 * cfg.trans_scale], dtype=images.dtype,
-                        device=images.device).expand(images.shape[0], 2, 3)
+    return device_constant((0.0, 0.0, 10.0 * cfg.trans_scale), images.dtype,
+                           images.device).expand(images.shape[0], 2, 3)
+
+
+def _graph_key(state: TrainState, batch: Batch, generator: torch.Generator, mesh,
+               names) -> Optional[tuple]:
+    """What a replay of a captured train step must find as the capture saw
+    it, or None where the step runs eagerly: a batch or generator off CUDA,
+    a mesh of more than one rank. The key holds the batch's keys, shapes,
+    dtypes and devices, the generator object, the trained names and the
+    storage of every parameter and BatchNorm statistic (a graph reads and
+    writes them where they lay at its capture)."""
+    if (generator is None or generator.device.type != "cuda"
+            or mesh is not None and mesh.n_data * mesh.n_model > 1
+            or not all(torch.is_tensor(v) and v.is_cuda for v in batch.values())):
+        return None
+    return (tuple((k, v.shape, v.dtype, v.device) for k, v in batch.items()), generator,
+            tuple(names), tuple(p.data_ptr() for p in state.params.values()),
+            tuple(b.data_ptr() for b in state.batch_stats.values()))
+
+
+class _StepGraph:
+    """A train step's forward, loss and gradients captured as one CUDA
+    graph on a side stream, and its replays. The batch is copied into the
+    graph's static device inputs; the gradients are static outputs that the
+    next replay overwrites, so the optimizer reads them in stream order
+    first; the metrics come back as copies. ``generator`` is registered
+    with the graph: a replay draws the dropout masks and the init noise
+    from its state then, as an eager step would."""
+
+    def __init__(self, key: tuple, forward_backward, batch: Batch,
+                 generator: torch.Generator):
+        dev = batch["images"].device
+        self.key = key
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.grads, self.metrics = forward_backward(self.batch)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def replay(self, batch: Batch):
+        """Load ``batch``, replay → (the static gradients, the metrics' copies)."""
+        for k, v in self.batch.items():
+            v.copy_(batch[k], non_blocking=True)
+        self.graph.replay()
+        return self.grads, {k: v.clone() for k, v in self.metrics.items()}
+
+
+class _TrainStep:
+    """``train_step(state, batch, generator) → (state, metrics)``.
+
+    Where the step can observe that a replay computes what it would compute
+    eagerly (``_graph_key``), the forward, the loss and the gradients run
+    as a CUDA graph (``_StepGraph``): a key's first call runs eagerly, a
+    second call in a row with that key captures and replays, and later
+    calls with the graph's key replay it. A call with another key runs
+    eagerly and leaves the graph in place (one graph, one memory pool a
+    step object). AMSGrad runs eagerly after either. ``eager_steps`` and
+    ``graph_replays`` count the calls of each kind, the capturing call
+    among the replays. An eager step runs in the ``forward``, ``backward``
+    and ``optimizer`` spans, a replayed one in ``forward_backward`` (the
+    input copies and the replay) and ``optimizer``."""
+
+    def __init__(self, forward_backward, tx: AMSGrad, check_device, mesh):
+        self._forward_backward = forward_backward
+        self._tx, self._check_device, self._mesh = tx, check_device, mesh
+        self._graph: Optional[_StepGraph] = None
+        self._last_key = None
+        self.eager_steps = 0
+        self.graph_replays = 0
+
+    def __call__(self, state: TrainState, batch: Batch, generator: torch.Generator):
+        self._check_device(batch)
+        names = list(state.opt_state["mu"])
+        key = _graph_key(state, batch, generator, self._mesh, names)
+        if key is None or key != self._last_key and (self._graph is None
+                                                     or key != self._graph.key):
+            self.eager_steps += 1
+            grads, metrics = self._forward_backward(state, batch, generator, names)
+        else:
+            with span("forward_backward"):
+                if self._graph is None or key != self._graph.key:
+                    self._graph = None  # its pool goes before the next one fills
+                    self._graph = _StepGraph(
+                        key, lambda b: self._forward_backward(state, b, generator, names),
+                        batch, generator)
+                grads, metrics = self._graph.replay(batch)
+            self.graph_replays += 1
+        self._last_key = key
+        with span("optimizer"):
+            self._tx.update(dict(zip(names, grads)), state.opt_state, state.params)
+        state.step += 1
+        return state, metrics
 
 
 def _step_fns(model: torch.nn.Module, cfg: TrainConfig, tx: AMSGrad, dev: torch.device,
@@ -100,7 +202,8 @@ def _step_fns(model: torch.nn.Module, cfg: TrainConfig, tx: AMSGrad, dev: torch.
     generator)`` its loss and ``predictions(out)`` what eval_step returns
     beside the metrics; ``init_trans`` is the IEF translation init of the
     train step, ``(batch, cfg, generator)``, and of eval_step,
-    ``(batch, cfg)``; ``mesh`` makes both steps data-parallel."""
+    ``(batch, cfg)``; ``mesh`` makes both steps data-parallel. train_step
+    is a ``_TrainStep``."""
     train_trans, eval_trans = init_trans
 
     def forward(state: TrainState, batch: Batch, in_trans, train: bool, generator):
@@ -116,9 +219,8 @@ def _step_fns(model: torch.nn.Module, cfg: TrainConfig, tx: AMSGrad, dev: torch.
     def reduced(metrics):
         return dict(zip(metrics, all_reduce_mean(list(metrics.values()), mesh)))
 
-    def train_step(state: TrainState, batch: Batch, generator: torch.Generator):
-        check_device(batch)
-        names = list(state.opt_state["mu"])
+    def forward_backward(state: TrainState, batch: Batch, generator: torch.Generator, names):
+        """(the gradients of ``names``, the metrics)."""
         with data_parallel(mesh):
             with span("forward"):
                 in_trans = train_trans(batch, cfg, generator)
@@ -126,13 +228,11 @@ def _step_fns(model: torch.nn.Module, cfg: TrainConfig, tx: AMSGrad, dev: torch.
                 total, metrics = loss_from_out(out, batch, generator)
             with span("backward"):
                 grads = torch.autograd.grad(total, [state.params[n] for n in names])
+                metrics = {k: v.detach() for k, v in metrics.items()}
                 if mesh is not None:
                     grads = all_reduce_mean(grads, mesh)
-                    metrics = reduced({k: v.detach() for k, v in metrics.items()})
-        with span("optimizer"):
-            tx.update(dict(zip(names, grads)), state.opt_state, state.params)
-        state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+                    metrics = reduced(metrics)
+        return grads, metrics
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
@@ -144,7 +244,7 @@ def _step_fns(model: torch.nn.Module, cfg: TrainConfig, tx: AMSGrad, dev: torch.
             metrics = reduced(metrics)
         return metrics, predictions(out)
 
-    return train_step, eval_step
+    return _TrainStep(forward_backward, tx, check_device, mesh), eval_step
 
 
 def make_twoview_step_fns(model: torch.nn.Module, smplx_params: SMPLXParams,

@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .. import constants as C
+from .. import device_constant
 from ..bodymodel.smplx import SMPLXParams, smplx_forward
 from ..bodymodel.vposer import VPoserParams, vposer_encode, vposer_rsample
 from ..config import LossWeights, RealLossWeights
@@ -26,10 +27,16 @@ Metrics = Dict[str, torch.Tensor]
 
 def _limb_weights(n: int, l1, l2, w: float, like: torch.Tensor) -> torch.Tensor:
     """(n,) factors: w on ``l1``, w² on ``l2``, 1 elsewhere."""
-    f = torch.ones(n, dtype=like.dtype, device=like.device)
-    f[list(l1)] = w
-    f[list(l2)] = w ** 2
-    return f
+    return device_constant(tuple(w ** 2 if i in l2 else w if i in l1 else 1.0 for i in range(n)),
+                           like.dtype, like.device)
+
+
+def _focal(focal, like: torch.Tensor) -> torch.Tensor:
+    """``focal`` (a tuple, an array or a tensor) as a tensor of ``like``'s
+    dtype on its device; a tuple is made there once (``device_constant``)."""
+    if isinstance(focal, tuple):
+        return device_constant(focal, like.dtype, like.device)
+    return torch.as_tensor(focal, dtype=like.dtype, device=like.device)
 
 
 def _limb_weight_joints(sq: torch.Tensor, w: float) -> torch.Tensor:
@@ -97,7 +104,7 @@ def cam_frame_and_project(rotmat_root, trans, joints, intr, focal):
     cam_j = (torch.einsum("bvij,bvnj->bvni", rotmat_root, joints)
              + trans[:, :, None, :])
     xy = cam_j[..., :2] / cam_j[..., 2:]
-    f = torch.as_tensor(focal, dtype=xy.dtype, device=xy.device)
+    f = _focal(focal, xy)
     if f.ndim == 2:  # per-view (V, 2) focal lengths (real DJI cameras)
         f = f[None, :, None, :]
     elif f.ndim == 3:  # per-sample per-view (B, V, 2): dataset intrinsics
@@ -191,7 +198,7 @@ def joints_loss(pred_pose: torch.Tensor, pred_betas: torch.Tensor,
     focal = torch.stack([intr[..., 0, 0], intr[..., 1, 1]], dim=-1)  # (B, 2, 2)
     cam_j, j2d = cam_frame_and_project(rotmat[:, :, 0], trans, joints, intr, focal)
 
-    sel = list(SMPLX_TO_H36M17)
+    sel = device_constant(tuple(SMPLX_TO_H36M17), torch.int64, cam_j.device)
     pj3, pj2 = cam_j[:, :, sel], j2d[:, :, sel]
     gt3, gt2 = batch["gt_joints"], batch["gt_j2d"]
 
@@ -269,7 +276,7 @@ def _weak_cam_project(rotmat_root, cam, joints, focal, img_res):
                         dim=-1)
     rot_j = torch.einsum("bij,bnj->bni", rotmat_root, joints) + cam_t[:, None]
     xy = rot_j[..., :2] / rot_j[..., 2:]
-    return xy * torch.as_tensor(focal, dtype=xy.dtype, device=xy.device)
+    return xy * _focal(focal, xy)
 
 
 def hmr_loss(pred_pose6d: torch.Tensor, pred_betas: torch.Tensor, pred_cam: torch.Tensor,

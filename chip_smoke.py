@@ -44,19 +44,23 @@ Phases, each of which exits non-zero on failure:
      and bound; one step's loss and gradients with the skinning kernel
      against the same step with the plain version (same dropout masks),
      with an f32 and with the bf16 trunk, each beside the kernel step
-     against itself; 25 steps on one batch, each launching skinning
-     exactly once, with the loss finite and falling; one eval_step; then
-     ms per step, frames/s, the forward / backward / optimizer split from
-     CUDA events around loop.py's own spans and the device's idle share
-     from torch.profiler;
+     against itself; 25 steps on one batch of one step object, the first
+     eager, the second captured as a CUDA graph and the rest replayed
+     (eager_steps 1, graph_replays 24), skinning launched at the first two
+     only (the host counts nothing at a replay), with the loss finite and
+     falling; one eval_step; then ms per step, replayed and eager (a fresh
+     step object's first call), frames/s, the forward / backward /
+     forward_backward / optimizer split of each from CUDA events around
+     loop.py's own spans and the replayed step's idle share from
+     torch.profiler;
   9. the other model families on the same B = 30 batch: twoview_eval_metrics
      of phase 8's eval_step predictions with the skinning kernel against the
      plain version; for hmr, copenet_singleview and muhmr
      (make_singleview_step_fns) and copenet_twoview_sep
      (make_twoview_step_fns), each with its bf16 trunk, one step with the
-     kernel against one with the plain skinning, then 10 steps each
-     launching skinning once with the loss finite and falling, and ms per
-     step; the per-drone model behind Int8Inference (104 int8 conv launches,
+     kernel against one with the plain skinning, then 10 steps (eager,
+     capture, replays) launching skinning at the first two, with the loss
+     finite and falling, and ms per replayed step; the per-drone model behind Int8Inference (104 int8 conv launches,
      each trunk's features equal to its plain version's), and its staged
      serving (AirPoseTwoViewSepView.regress_step, 3 rounds a view) against
      its fused forward;
@@ -66,8 +70,9 @@ Phases, each of which exits non-zero on failure:
      10,475-vertex SMPLX_NEUTRAL.npz written from synthetic_smplx_params()),
      B = 30 of 224², 20 steps, val every 10: checkpoints and metrics written,
      the logged loss finite and falling, the summary grid rendered,
-     skinning launched once a train step (60 bodies), once a val batch (26)
-     and once a summary grid (2), counted in the call each launch ran in,
+     skinning launched at the eager and the captured train step (60
+     bodies; none at the 18 replays), once a val batch (26) and once a
+     summary grid (2), counted in the call each launch ran in,
      and nothing else of the kernels; then `python -m
      airpose_tpu_torch.train.trainer` as two subprocesses at once, one
      resuming at step 20 and ending at 30, one resuming in a copy of the
@@ -90,17 +95,18 @@ Phases, each of which exits non-zero on failure:
      make_real_twoview_step_fns step (bf16 AirPoseTwoView) with the
      skinning kernel against one with the plain skinning (a determinism
      check: the real losses read no skinned vertex, so the two steps are
-     equal bit for bit), then 10 steps on one batch each skinning 60
-     bodies once with the loss finite and falling, ms a step, and
+     equal bit for bit), then 10 steps on one batch skinning 60 bodies at
+     the eager and the captured step, with the loss finite and falling, ms a step, and
      eval_step's predictions skinned with the kernel against the plain
      version (the kernel's agreement on this path); the
      hmr_camswap_difffl step on each view, kernel step against plain step,
-     then 10 steps alternating views 0/1 each skinning 30 bodies once, its
+     then 10 steps alternating views 0/1 skinning 30 bodies at each view's
+     eager and captured step, its
      eval vertices kernel against plain, and 6 steps timed from a fresh
      model with their losses finite; the per-drone model's real step, kernel step against plain
      step; trainer.main in-process on real:// (copenet_twoview,
-     B = 30 of 224², 10 steps, val at 10): skinning once a train step (60
-     bodies), once in the val batch (60) and once in the summary grid (2),
+     B = 30 of 224², 10 steps, val at 10): skinning at the eager and the
+     captured train step (60 bodies), once in the val batch (60) and once in the summary grid (2),
      counted in the call each ran in, checkpoints written and the grid
      rendered, the CLI step beside phase 8's; then a 2-step
      --pretrained_checkpoint (phase 10's last.ckpt) --train_reg_only run:
@@ -1032,8 +1038,16 @@ def device_work(fn, n):
         prof_ms = wall_ms(fn, iters=n, warmup=0)
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)
-              and e.name not in ("forward", "backward", "optimizer")]
+              and e.name not in ("forward", "backward", "forward_backward", "optimizer")]
     return events, prof_ms
+
+
+def graph_launches(calls, objects=1):
+    """Skinning launches at each of ``calls`` train steps of one batch
+    layout, ``objects`` step objects called in turn: one at each object's
+    eager first call and at its capture (its second), none at a replay,
+    which the host counter does not see (train/loop.py)."""
+    return [1] * min(calls, 2 * objects) + [0] * max(calls - 2 * objects, 0)
 
 
 def phase_train(dev):
@@ -1090,15 +1104,18 @@ def phase_train(dev):
     state, tx = create_train_state(model, cfg.lr)
     train_step, eval_step = make_twoview_step_fns(model, smplx_params, cfg, tx)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    losses, launches = [], set()
+    losses, launches = [], []
     for i in range(TRAIN_STEPS):
         _build.counts.clear()
         state, metrics = train_step(state, batch, gen)
         losses.append(metrics["loss"].item())
-        n = _build.counts["lbs_skinning"]
-        launches.add(n)
-        check(n == 1, f"train step {i} launched skinning {n} times, expected 1")
-    log(f"train: {TRAIN_STEPS} steps at B={B}, losses {[round(x, 1) for x in losses]}")
+        launches.append(_build.counts["lbs_skinning"])
+    counters = (train_step.eager_steps, train_step.graph_replays)
+    log(f"train: {TRAIN_STEPS} steps at B={B}, losses {[round(x, 1) for x in losses]}; "
+        f"skinning launches by step {launches}; eager_steps, graph_replays {counters}")
+    check(launches == graph_launches(TRAIN_STEPS),
+          f"train steps launched skinning {launches}, expected {graph_launches(TRAIN_STEPS)}")
+    check(counters == (1, TRAIN_STEPS - 1), f"train step eager_steps, graph_replays {counters}")
     check(bool(np.isfinite(losses).all()), "non-finite training loss")
     check(np.mean(losses[-5:]) < np.mean(losses[:3]),
           f"training loss did not fall: first 3 {losses[:3]}, last 5 {losses[-5:]}")
@@ -1109,9 +1126,15 @@ def phase_train(dev):
     log(f"eval_step: loss {metrics['loss'].item():.1f}, pred_rotmat "
         f"{tuple(preds['pred_rotmat'].shape)}")
 
-    # the step's time, then its parts: loop.py's spans, each also bracketed
-    # by two CUDA events (the name loop.py calls is replaced here only)
+    # the step's time, replayed and eager (a fresh step object's first call
+    # runs eagerly), then its parts: loop.py's spans, each also bracketed by
+    # two CUDA events (the name loop.py calls is replaced here only)
     step_ms = wall_ms(lambda: train_step(state, batch, gen), iters=10, warmup=2)
+
+    def eager_step():
+        return make_twoview_step_fns(model, smplx_params, cfg, tx)[0](state, batch, gen)
+
+    eager_ms = wall_ms(eager_step, iters=5, warmup=1)
     marks = []
 
     @contextlib.contextmanager
@@ -1124,13 +1147,17 @@ def phase_train(dev):
         marks.append((name, *ev))
 
     n_spans = 5
-    with mock.patch.object(loop, "span", event_span):
-        for _ in range(n_spans):
-            train_step(state, batch, gen)
-    torch.cuda.synchronize()
-    spans = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
-    for name, start, stop in marks:
-        spans[name] += start.elapsed_time(stop) / n_spans
+    splits = {}
+    for kind, fn in (("replayed", lambda: train_step(state, batch, gen)), ("eager", eager_step)):
+        marks.clear()
+        with mock.patch.object(loop, "span", event_span):
+            for _ in range(n_spans):
+                fn()
+        torch.cuda.synchronize()
+        splits[kind] = {"forward": 0.0, "backward": 0.0, "forward_backward": 0.0,
+                        "optimizer": 0.0}
+        for name, start, stop in marks:
+            splits[kind][name] += start.elapsed_time(stop) / n_spans
     # busy: the device time of every kernel and copy of 3 steps under the
     # profiler (the record_function spans' device-side ranges are not work);
     # idle share = 1 − busy / wall, wall from the unprofiled steps (the
@@ -1139,9 +1166,12 @@ def phase_train(dev):
     device_events, prof_ms = device_work(lambda: train_step(state, batch, gen), n_prof)
     busy_ms = sum(e.time_range.elapsed_us() for e in device_events) / 1e3 / n_prof
     fps = B / (step_ms / 1e3)
-    log(f"train step at B={B} frames (2·{B} crops of 224²): {step_ms:.3f} ms, {fps:.1f} "
-        f"frames/s; spans (CUDA events) {{{', '.join(f'{k}: {v:.3f}' for k, v in spans.items())}}}"
-        f" ms; device busy {busy_ms:.3f} ms a step in {len(device_events) / n_prof:.0f} "
+    log(f"train step at B={B} frames (2·{B} crops of 224²): replayed {step_ms:.3f} ms, {fps:.1f} "
+        f"frames/s; eager {eager_ms:.3f} ms, {B / (eager_ms / 1e3):.1f} frames/s; eager_steps, "
+        f"graph_replays {(train_step.eager_steps, train_step.graph_replays)}; spans (CUDA events) "
+        + "; ".join(f"{kind} {{{', '.join(f'{k}: {v:.3f}' for k, v in split.items() if v)}}}"
+                    for kind, split in splits.items())
+        + f" ms; replayed: device busy {busy_ms:.3f} ms a step in {len(device_events) / n_prof:.0f} "
         f"kernels and copies, idle share {1 - busy_ms / step_ms:.3f} (under the profiler: wall "
         f"{prof_ms:.3f} ms, idle share {1 - busy_ms / prof_ms:.3f})")
     by_name = {}
@@ -1150,8 +1180,11 @@ def phase_train(dev):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     log("train step, top device time a step: " + "; ".join(f"{ms:.3f} ms {n[:90]}"
                                                             for n, ms in top))
-    (backward["train_launches_per_step"],) = launches
-    return backward, {"step_ms": step_ms, "frames_per_s": fps, "spans_ms": spans,
+    backward["train_launches_by_step"] = launches
+    return backward, {"step_ms": step_ms, "frames_per_s": fps, "spans_ms": splits,
+                      "eager_step_ms": eager_ms, "eager_frames_per_s": B / (eager_ms / 1e3),
+                      "eager_steps": train_step.eager_steps,
+                      "graph_replays": train_step.graph_replays,
                       "busy_ms": busy_ms, "idle_share": 1 - busy_ms / step_ms,
                       "profiled_step_ms": prof_ms,
                       "device_events_per_step": len(device_events) / n_prof,
@@ -1186,9 +1219,10 @@ def phase_eval_metrics(smplx_params, batch, preds):
 def phase_families(dev, smplx_params, batch, steps=FAMILY_STEPS):
     """Phase 9, checks 1-2: each of the other families' train steps on the
     bf16 trunk (TrainConfig(model=family)), kernel step against plain step,
-    then ``steps`` steps each launching skinning once (every family's loss
-    makes one SMPL-X call: B bodies for hmr and copenet_singleview, 2·B
-    folded for muhmr and the per-drone model), the loss falling."""
+    then ``steps`` steps, the eager first and the capture each launching
+    skinning once (every family's loss makes one SMPL-X call: B bodies for
+    hmr and copenet_singleview, 2·B folded for muhmr and the per-drone
+    model) and the replays none, the loss falling."""
     from airpose_tpu_torch.config import TrainConfig
     from airpose_tpu_torch.models import MODEL_REGISTRY
     from airpose_tpu_torch.ops import _build
@@ -1206,13 +1240,15 @@ def phase_families(dev, smplx_params, batch, steps=FAMILY_STEPS):
         state, tx = create_train_state(model, cfg.lr)
         train_step, _ = make_steps(tx, True)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-        losses = []
+        losses, launches = [], []
         for i in range(steps):
             _build.counts.clear()
             state, metrics = train_step(state, batch, gen)
             losses.append(metrics["loss"].item())
-            n = _build.counts["lbs_skinning"]
-            check(n == 1, f"{family} train step {i} launched skinning {n} times, expected 1")
+            launches.append(_build.counts["lbs_skinning"])
+        check(launches == graph_launches(steps),
+              f"{family} train steps launched skinning {launches}, expected "
+              f"{graph_launches(steps)}")
         check(bool(np.isfinite(losses).all()), f"non-finite {family} training loss {losses}")
         check(np.mean(losses[-3:]) < np.mean(losses[:3]),
               f"{family} training loss did not fall: {losses}")
@@ -1220,7 +1256,7 @@ def phase_families(dev, smplx_params, batch, steps=FAMILY_STEPS):
         log(f"{family}: {steps} steps at B={B}, losses {[round(x, 1) for x in losses]}; "
             f"{step_ms:.3f} ms a step, {B / step_ms * 1e3:.1f} frames/s")
         out[family] = {"kernel_vs_plain": agree, "losses": losses, "step_ms": step_ms,
-                       "frames_per_s": B / step_ms * 1e3, "skinning_launches_per_step": 1}
+                       "frames_per_s": B / step_ms * 1e3, "skinning_launches_by_step": launches}
         del model, state, tx, train_step, make_steps
         torch.cuda.empty_cache()
     return out
@@ -1470,11 +1506,14 @@ def phase_cli(dev, tmp, card, phase8_step_ms):
     val = [2 * CLI_BATCH] * len(range(n_train, CLI_SAMPLES - CLI_BATCH + 1, CLI_BATCH))
     if CLI_SAMPLES - n_train < CLI_BATCH:
         val.append(2 * (CLI_SAMPLES - n_train))
-    want = ([CLI_SAMPLES]
-            + ([2 * CLI_BATCH] * CLI_VAL_EVERY + val[:1] + [2] + val[1:])
-            * (CLI_STEPS // CLI_VAL_EVERY))
+    # the train step skins at its eager first call and its capture, not at a replay
+    want = [CLI_SAMPLES]
+    for step, n in enumerate(graph_launches(CLI_STEPS), 1):
+        want += [2 * CLI_BATCH] * n + (val[:1] + [2] + val[1:]
+                                       if step % CLI_VAL_EVERY == 0 else [])
     check(bodies == want, f"CLI skinning launches by bodies {bodies}, expected {want} "
-          "(dataset; 60 a train step; the val batch; the summary grid)")
+          "(dataset; 60 at the eager and the captured train step; the val batch; the summary "
+          "grid)")
     check(counts == {"lbs_skinning": len(want), "fused_stage1": 0, "int8_conv": 0,
                      "int8_stem": 0, "add_layernorm": 0},
           f"CLI kernel launches {counts}")
@@ -1495,7 +1534,8 @@ def phase_cli(dev, tmp, card, phase8_step_ms):
     passes = CLI_STEPS // CLI_VAL_EVERY
     check(calls == {"train": CLI_STEPS, "val": len(val) * passes, "grid": passes},
           f"CLI calls {calls}")
-    check(per_call == {"train": 1, "val": 1, "grid": 1, "set-up": 1} and "other" not in where,
+    check(per_call == {"train": 2 / CLI_STEPS, "val": 1, "grid": 1, "set-up": 1}
+          and "other" not in where,
           f"CLI skinning launches a call {per_call}, elsewhere {where.count('other')}")
     check(sorted(train_loss) == [1, 10, 20] and sorted(val_loss) == [10, 20],
           f"CLI logged steps {sorted(train_loss)}, val {sorted(val_loss)}")
@@ -1874,17 +1914,18 @@ def real_twoview_steps(model, smplx_params, vposer, cfg):
 
 
 def train_counted(train_step, state, batch, gen, what, bodies_a_step, views=None):
-    """REAL_STEPS steps on one batch, each launching skinning once on
-    ``bodies_a_step`` bodies; ``views`` alternates the step's view. → the
-    losses."""
+    """REAL_STEPS steps on one batch, skinning ``bodies_a_step`` bodies once
+    at each eager first call and capture of a view's step object, not at a
+    replay; ``views`` alternates the step's view. → the losses."""
     losses = []
+    want = graph_launches(REAL_STEPS, 1 if views is None else len(views))
     for i in range(REAL_STEPS):
         extra = () if views is None else (views[i % len(views)],)
         with skinning_bodies() as bodies:
             state, metrics = train_step(state, batch, gen, *extra)
         losses.append(metrics["loss"].item())
-        check(bodies == [bodies_a_step], f"{what} step {i} skinned {bodies}, expected "
-              f"[{bodies_a_step}]")
+        check(bodies == [bodies_a_step] * want[i], f"{what} step {i} skinned {bodies}, expected "
+              f"{[bodies_a_step] * want[i]}")
     check(bool(np.isfinite(losses).all()), f"non-finite {what} loss {losses}")
     return losses
 
@@ -2057,8 +2098,9 @@ def phase_real_cli(tmp, root, card, phase8_step_ms, pretrained):
     lines = [line for _, line in out.lines]
     train_loss, val_loss = logged_losses(lines)
     skipped = [ln for ln in lines if ln.startswith("summary render skipped")]
-    # one val batch of the 30 test frames, 60 bodies; the grid after it
-    want = [2 * CLI_BATCH] * REAL_STEPS + [2 * REAL_TEST_FRAMES, 2]
+    # the eager and the captured train step; one val batch of the 30 test
+    # frames, 60 bodies; the grid after it
+    want = [2 * CLI_BATCH] * sum(graph_launches(REAL_STEPS)) + [2 * REAL_TEST_FRAMES, 2]
     per_call = cli.per_call()
     counts = kernel_counts()
     log(f"CLI real:// in-process: returned after {run_s:.1f} s; skinning by bodies "
@@ -2069,7 +2111,7 @@ def phase_real_cli(tmp, root, card, phase8_step_ms, pretrained):
     check(cli.bodies == want, f"real CLI skinning launches by bodies {cli.bodies}, expected "
           f"{want}")
     check(cli.calls == {"train": REAL_STEPS, "val": 1, "grid": 1}, f"real CLI calls {cli.calls}")
-    check(per_call == {"train": 1, "val": 1, "grid": 1, "set-up": 0}
+    check(per_call == {"train": 2 / REAL_STEPS, "val": 1, "grid": 1, "set-up": 0}
           and "other" not in cli.where, f"real CLI skinning launches a call {per_call}")
     check(counts == {"lbs_skinning": len(want), "fused_stage1": 0, "int8_conv": 0,
                      "int8_stem": 0, "add_layernorm": 0},
@@ -3136,17 +3178,19 @@ def rehearsal_predicted(h5py_here):
     batch (a pose in create_aerialpeople, a train step, an eval loss, the
     eval metrics' prediction and GT, a summary grid, a gender group of
     precompute_canonical_gt, the cross-view metric, the AirPose+ export), 52
-    int8 convs a trunk call."""
+    int8 convs a trunk call. A trainer's train step skins at its eager first
+    call and its capture only (graph_launches)."""
     return {
         "[1/10]": (3 * 2, 0),           # 3 subjects × 2 poses
-        "[2/10]": (2 + 1 + 6 + 1 + 1, 0),  # precompute: train's 2 genders, test's 1;
-                                        # 6 steps; 1 val batch; 1 grid
+        "[2/10]": (2 + 1 + sum(graph_launches(6)) + 1 + 1, 0),  # precompute: train's 2
+                                        # genders, test's 1; 6 steps; 1 val batch; 1 grid
         "[3/10]": (0, 0),
         "[4/10]": (2 * (1 + 1 + 2), 3 * 52),  # per pass: precompute, the eval loss of
                                         # its 1 batch, the metrics' 2; --int8: calibration,
                                         # clip report, 1 batch
         "[5-6/10]": (2 + 1, 0),         # 6 frames at B = 4: 2 eval losses, cross-view
-        "[7/10]": (48 + 1 + 1 + 3, 0),  # 48 steps, 1 full val batch, 1 grid; the eval
+        "[7/10]": (sum(graph_launches(48)) + 1 + 1 + 3, 0),  # 48 steps, 1 full val batch,
+                                        # 1 grid; the eval
         "[8/10]": (1, 0),               # the export (none in the joints-only loop)
         "[9/10]": (0, 0),               # served and offline forwards skin nothing
         "[9b/10]": (0, 0),
@@ -3344,9 +3388,9 @@ def phase_roofline(dev, root, card, phase8_step_ms):
     results = tr.main(["--batch", "30", "--img", "224", "--length", "1"])
     main_s = time.perf_counter() - t0
     launches = kernel_counts()["lbs_skinning"]
-    # full, loss_fwd and loss_fwdbwd each skin 30 × 2 bodies once an
-    # iteration; the synthetic batch's GT, once
-    want = 3 * (1 + tr.WARMUP) + 1
+    # loss_fwd and loss_fwdbwd each skin 30 × 2 bodies once an iteration,
+    # full at its eager and captured train steps; the synthetic batch's GT, once
+    want = sum(graph_launches(1 + tr.WARMUP)) + 2 * (1 + tr.WARMUP) + 1
     check(launches == want, f"train_roofline: {launches} skinning launches, predicted {want}")
     check(set(results) == set(tr.ALL_STAGES) and all(np.isfinite(v) and v > 0
                                                      for v in results.values()),
@@ -3369,7 +3413,8 @@ def phase_roofline(dev, root, card, phase8_step_ms):
             busy = sum(e.time_range.elapsed_us() for e in prof.events()
                        if e.device_type == DeviceType.CUDA
                        and not getattr(e, "is_user_annotation", False)
-                       and e.name not in ("forward", "backward", "optimizer")) / 1e3 / 3
+                       and e.name not in ("forward", "backward", "forward_backward",
+                                          "optimizer")) / 1e3 / 3
             detail[name + (" --remat" if remat else "")] = {
                 "ms": ms, "busy_ms": busy, "idle_share": 1 - busy / ms, "peak_gib": peak}
             del fn, c0, c
@@ -4092,16 +4137,17 @@ def main():
         k["launches"] = launches[k["name"]]
         if k["name"] == "int8_block":
             k["blocks"] = int8_launches["int8_block"]["int8_block"]
-    # launches on phase 9's paths: skinning once a train step of each family
-    # and twice in the eval metrics, the int8 conv in the _sep int8 inference
+    # launches on phase 9's paths: skinning at each family's eager and
+    # captured train step (none at a replay) and twice in the eval metrics, the int8 conv in the _sep int8 inference
     kernels[0]["phase9_launches"] = {
-        **{f"{f} train step": v["skinning_launches_per_step"]
+        **{f"{f} train steps (eager, capture, replays)": v["skinning_launches_by_step"]
            for f, v in families["train_steps"].items()},
         "twoview_eval_metrics": families["eval_metrics"]["skinning_launches"]}
     next(k for k in kernels if k["name"] == "int8_conv")["phase9_launches"] = {
         "_sep int8 inference": families["sep_serving"]["int8"]["launches"]["int8_conv"]}
-    # launches on phase 10's paths: skinning in the CLI run, a CLI train step,
-    # val batch and summary grid and the set-up, as counted in each call, and
+    # launches on phase 10's paths: skinning in the CLI run, a CLI train step
+    # (2 of 20 skin: the eager and the captured), val batch and summary grid
+    # and the set-up, as counted in each call, and
     # in the readers' precompute (once a 256-body chunk)
     per_call = phase10["cli"]["launches_per_call"]
     kernels[0]["phase10_launches"] = {
@@ -4109,8 +4155,8 @@ def main():
         "CLI train step": per_call["train"], "CLI val batch": per_call["val"],
         "CLI summary grid": per_call["grid"], "CLI set-up": per_call["set-up"],
         "precompute_canonical_gt of 300 bodies": phase10["readers"]["precompute_launches"]}
-    # launches on phase 11's paths, each counted in the run: one a real step
-    # (60 bodies two-view, 30 single-view), one a val batch and a grid of the
+    # launches on phase 11's paths, each counted in the run: one an eager or
+    # captured real step (60 bodies two-view, 30 single-view), one a val batch and a grid of the
     # real CLI run, and the reg-only fine-tune's
     real, real_cli = phase11["steps"], phase11["cli"]
     kernels[0]["phase11_launches"] = {
