@@ -3,6 +3,13 @@
 Port of airpose_tpu/bodymodel/smplx.py. The 127 output joints are the 55
 kinematic joints (J_regressor), 21 vertex-picked extra joints (face, feet,
 finger tips) and 51 facial landmarks, in the upstream smplx package order.
+
+Whole-body callers (Multi-HMR) also pose the jaw and both hands and give
+expression coefficients, whose blend shapes (``expr_dirs``) add to the
+shape's as in the smplx package (``shapedirs`` [:, :, 300:] of the released
+files). Without them the forward is the body-only one the AirPose and HMR
+families run: hands at the model's mean, jaw and eyes at the identity, no
+expression.
 """
 
 import dataclasses
@@ -19,6 +26,7 @@ NUM_JOINTS = 55
 NUM_HAND_JOINTS = 15
 NUM_FACE_LANDMARKS = 51
 NUM_EXTRA_JOINTS = 21
+NUM_EXPRESSION = 10
 
 # Vertex indices of the extra picked joints, in the upstream smplx order:
 # 5 face points, 6 feet points, 10 finger tips.
@@ -58,6 +66,7 @@ class SMPLXParams:
     lmk_bary: torch.Tensor         # (51, 3) barycentric weights
     parents: Tuple[int, ...]
     faces: np.ndarray              # (F, 3), host-side
+    expr_dirs: Optional[torch.Tensor] = None   # (V, 3, num_expression); None: no expression
 
     def to(self, device) -> "SMPLXParams":
         return dataclasses.replace(self, **{
@@ -74,27 +83,42 @@ def smplx_forward(
     transl: Optional[torch.Tensor] = None,
     pose2rot: bool = False,
     use_kernels: bool = True,
+    jaw_pose: Optional[torch.Tensor] = None,
+    hand_pose: Optional[torch.Tensor] = None,
+    expression: Optional[torch.Tensor] = None,
 ) -> SMPLXOutput:
     """Pure SMPL-X forward.
 
     With ``pose2rot=False`` ``body_pose`` is (B, 21, 3, 3) and
     ``global_orient`` (B, 1, 3, 3) or (B, 3, 3); with ``pose2rot=True`` they
-    are axis-angle (B, 63) and (B, 3). Hands take the model's mean hand
-    pose, jaw and eyes the identity. Skinning goes through the CUDA kernel
-    on the card unless ``use_kernels=False``.
+    are axis-angle (B, 63) and (B, 3). ``jaw_pose`` (B, 1, 3, 3) and
+    ``hand_pose`` (B, 30, 3, 3; left hand first) are rotation matrices;
+    left out, the jaw takes the identity and the hands the model's mean
+    hand pose. The eyes take the identity. ``expression`` (B, E) weighs the
+    model's ``expr_dirs``; left out, there is no expression. Skinning goes
+    through the CUDA kernel on the card unless ``use_kernels=False``.
     """
     B = betas.shape[0]
     dtype, device = betas.dtype, betas.device
     jaw_eyes_pose = torch.eye(3, dtype=dtype, device=device).expand(B, 3, 3, 3)
-    hand_pose = params.hand_pose.to(dtype).expand((B,) + params.hand_pose.shape)
+    if jaw_pose is not None:
+        jaw_eyes_pose = torch.cat([jaw_pose.to(dtype), jaw_eyes_pose[:, 1:]], dim=1)
+    if hand_pose is None:
+        hand_pose = params.hand_pose.to(dtype).expand((B,) + params.hand_pose.shape)
+    shape_dirs = params.shape_dirs.to(dtype)
+    if expression is not None:
+        if params.expr_dirs is None:
+            raise ValueError("smplx_forward: expression given, the model has no expr_dirs")
+        betas = torch.cat([betas, expression.to(dtype)], dim=-1)
+        shape_dirs = torch.cat([shape_dirs, params.expr_dirs.to(dtype)], dim=-1)
 
     full_pose = _lbs.full_pose_from_parts(
-        global_orient, body_pose, jaw_eyes_pose, hand_pose, pose2rot=pose2rot)
+        global_orient, body_pose, jaw_eyes_pose, hand_pose.to(dtype), pose2rot=pose2rot)
     verts, posed_joints = _lbs.lbs(
         betas,
         full_pose,
         params.v_template.to(dtype),
-        params.shape_dirs.to(dtype),
+        shape_dirs,
         params.pose_dirs.to(dtype),
         params.j_regressor.to(dtype),
         params.parents,
@@ -162,7 +186,7 @@ def load_smplx_npz(
 def smplx_params_from_numpy(*, v_template, shape_dirs, pose_dirs, j_regressor,
                             lbs_weights, hand_pose, extra_joint_ids,
                             lmk_vert_ids, lmk_bary, parents, faces,
-                            dtype=torch.float32) -> SMPLXParams:
+                            expr_dirs=None, dtype=torch.float32) -> SMPLXParams:
     """SMPLXParams on the CPU from arrays named as the JAX SMPLXParams
     fields (e.g. ``smplx_params_from_numpy(**{f: np.asarray(getattr(p, f))
     ...})`` for a JAX ``p``)."""
@@ -178,7 +202,8 @@ def smplx_params_from_numpy(*, v_template, shape_dirs, pose_dirs, j_regressor,
         lbs_weights=f(lbs_weights), hand_pose=f(hand_pose),
         extra_joint_ids=i(extra_joint_ids), lmk_vert_ids=i(lmk_vert_ids),
         lmk_bary=f(lmk_bary), parents=tuple(int(p) for p in parents),
-        faces=np.asarray(faces, dtype=np.int64))
+        faces=np.asarray(faces, dtype=np.int64),
+        expr_dirs=None if expr_dirs is None else f(expr_dirs))
 
 
 def synthetic_smplx_params(
@@ -190,8 +215,11 @@ def synthetic_smplx_params(
     """Deterministic synthetic model with the real schema, on the CPU.
 
     Draws from ``np.random.default_rng(seed)`` in the order of the JAX
-    builder, so every drawn array equals its JAX counterpart. Not
-    anthropometric: numerical plumbing only.
+    package's ``synthetic_smplx_params``, so every drawn array equals its
+    JAX counterpart; the
+    ``NUM_EXPRESSION`` expression directions, which the JAX model lacks, are
+    drawn last from the same generator. Not anthropometric: numerical
+    plumbing only.
     """
     rng = np.random.default_rng(seed)
     V, J = num_vertices, num_joints
@@ -218,10 +246,11 @@ def synthetic_smplx_params(
         [np.arange(n_faces), np.arange(1, n_faces + 1), np.arange(2, n_faces + 2)],
         axis=1,
     ).astype(np.int64) % V
+    expr_dirs = rng.normal(size=(V, 3, NUM_EXPRESSION)).astype(np.float32) * 0.01
 
     return smplx_params_from_numpy(
         v_template=v_template, shape_dirs=shape_dirs, pose_dirs=pose_dirs,
         j_regressor=j_regressor, lbs_weights=lbs_weights,
         hand_pose=hand_rotmats, extra_joint_ids=extra_ids,
         lmk_vert_ids=lmk_vert_ids, lmk_bary=lmk_bary, parents=parents,
-        faces=faces, dtype=dtype)
+        faces=faces, expr_dirs=expr_dirs, dtype=dtype)

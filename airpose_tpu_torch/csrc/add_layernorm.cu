@@ -1,15 +1,19 @@
-// Residual add, LayerNorm and cast in one pass over HMR 2.0's ViT residual
-// stream (models/vit.py):
+// Residual add, LayerNorm and cast in one pass over the ViT residual stream
+// (models/vit.py: HMR 2.0's ViT-H/16, Multi-HMR's DINOv2 ViT-L/14):
 //
 //   x ← x + f32(branch)                    (in place; skipped without a branch)
+//   x ← x + γ ⊙ f32(branch)                (the same, with a LayerScale γ)
 //   y = out_dtype(LayerNorm(x) · weight + bias)
 //
 // x is the float32 stream (rows × C), branch the block's attention or MLP
-// output in bf16 (f32 in an f32 backbone), weight and bias the float32
-// LayerNorm parameters, y the normalised rows in bf16 (the blocks' norms) or
-// f32 (``last_norm``). Statistics and the affine step are in f32; the add is
-// the same f32 addition PyTorch's ``x += branch`` makes, so x comes out
-// bit-equal; only the order of the LayerNorm's sums differs.
+// output in bf16 (f32 in an f32 backbone), γ the branch's float32 per-channel
+// LayerScale (DINOv2's ls1.gamma / ls2.gamma; a null pointer without one),
+// weight and bias the float32 LayerNorm parameters, y the normalised rows in
+// bf16 (the blocks' norms) or f32 (``last_norm``). Statistics and the affine
+// step are in f32; the add is the same f32 arithmetic PyTorch's
+// ``x += branch`` or ``x += gamma * branch`` makes (the product rounded, then
+// the sum: no fused multiply-add), so x comes out bit-equal; only the order
+// of the LayerNorm's sums differs.
 //
 // Replaces no TPU kernel: the JAX package leaves LayerNorm and the residual
 // add to XLA, which fuses them. On the card PyTorch ran them as three
@@ -37,7 +41,11 @@
 //  * The chunk loop is unrolled to K_MAX chunks a lane with a guard per chunk,
 //    so one instantiation serves every width up to 32·4·K_MAX and the ViT's
 //    two dtypes give four kernels (branch bf16 or f32, y bf16 or f32; no
-//    branch is a null pointer).
+//    branch is a null pointer), each with and without γ. The row's code is
+//    one template; the kernels without γ (HMR 2.0's) keep their name,
+//    signature and code from before γ existed; with it
+//    (``add_layernorm_scale_kernel``), each lane reads its chunks of γ (4 KB
+//    at C = 1,024, in L1 like weight and bias) once a row, beside the branch.
 
 #include <cstdint>
 
@@ -86,11 +94,13 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-template <typename B, typename O>
-__global__ void __launch_bounds__(WARPS * 32)
-    add_layernorm_kernel(float* __restrict__ x, const B* __restrict__ branch,
-                         const float* __restrict__ weight, const float* __restrict__ bias,
-                         O* __restrict__ y, int rows, int C, float eps) {
+template <typename B, typename O, bool SCALE>
+__device__ __forceinline__ void add_layernorm_row(float* __restrict__ x,
+                                                  const B* __restrict__ branch,
+                                                  const float* __restrict__ gamma,
+                                                  const float* __restrict__ weight,
+                                                  const float* __restrict__ bias,
+                                                  O* __restrict__ y, int rows, int C, float eps) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -114,8 +124,15 @@ __global__ void __launch_bounds__(WARPS * 32)
     for (int k = 0; k < K_MAX; ++k) {
       const int c = lane + 32 * k;
       if (c < n4) {
+        if constexpr (SCALE) {
+          const float4 g4 = __ldg(reinterpret_cast<const float4*>(gamma) + c);
+          const float g[4] = {g4.x, g4.y, g4.z, g4.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) v[k][i] += t[k][i];
+          for (int i = 0; i < 4; ++i) v[k][i] = __fadd_rn(v[k][i], __fmul_rn(g[i], t[k][i]));
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[k][i] += t[k][i];
+        }
         store4(x + base + 4 * c, v[k]);
       }
     }
@@ -154,36 +171,70 @@ __global__ void __launch_bounds__(WARPS * 32)
 }
 
 template <typename B, typename O>
-int launch(void* x, const void* branch, const void* weight, const void* bias, void* y, int rows,
-           int C, float eps, cudaStream_t stream) {
+__global__ void __launch_bounds__(WARPS * 32)
+    add_layernorm_kernel(float* __restrict__ x, const B* __restrict__ branch,
+                         const float* __restrict__ weight, const float* __restrict__ bias,
+                         O* __restrict__ y, int rows, int C, float eps) {
+  add_layernorm_row<B, O, false>(x, branch, nullptr, weight, bias, y, rows, C, eps);
+}
+
+// With γ the compiler keeps γ's chunks live beside the row and the branch:
+// 141 registers a thread, one block an SM, 51% of the byte bound at
+// Multi-HMR's rows against 87% without γ (H100). Asking for two blocks an SM
+// caps it at 128.
+template <typename B, typename O>
+__global__ void __launch_bounds__(WARPS * 32, 2)
+    add_layernorm_scale_kernel(float* __restrict__ x, const B* __restrict__ branch,
+                               const float* __restrict__ gamma,
+                               const float* __restrict__ weight,
+                               const float* __restrict__ bias, O* __restrict__ y, int rows,
+                               int C, float eps) {
+  add_layernorm_row<B, O, true>(x, branch, gamma, weight, bias, y, rows, C, eps);
+}
+
+template <typename B, typename O>
+int launch(void* x, const void* branch, const void* gamma, const void* weight, const void* bias,
+           void* y, int rows, int C, float eps, cudaStream_t stream) {
   const int blocks = (rows + WARPS - 1) / WARPS;
-  add_layernorm_kernel<B, O><<<blocks, WARPS * 32, 0, stream>>>(
-      static_cast<float*>(x), static_cast<const B*>(branch), static_cast<const float*>(weight),
-      static_cast<const float*>(bias), static_cast<O*>(y), rows, C, eps);
+  if (gamma != nullptr)
+    add_layernorm_scale_kernel<B, O><<<blocks, WARPS * 32, 0, stream>>>(
+        static_cast<float*>(x), static_cast<const B*>(branch), static_cast<const float*>(gamma),
+        static_cast<const float*>(weight), static_cast<const float*>(bias), static_cast<O*>(y),
+        rows, C, eps);
+  else
+    add_layernorm_kernel<B, O><<<blocks, WARPS * 32, 0, stream>>>(
+        static_cast<float*>(x), static_cast<const B*>(branch), static_cast<const float*>(weight),
+        static_cast<const float*>(bias), static_cast<O*>(y), rows, C, eps);
   return (int)cudaGetLastError();
 }
 
 template <typename O>
-int launch_out(void* x, const void* branch, const void* weight, const void* bias, void* y,
-               int rows, int C, int branch_kind, float eps, cudaStream_t stream) {
-  if (branch_kind == 2) return launch<float, O>(x, branch, weight, bias, y, rows, C, eps, stream);
-  return launch<__nv_bfloat16, O>(x, branch_kind == 0 ? nullptr : branch, weight, bias, y, rows,
-                                  C, eps, stream);
+int launch_out(void* x, const void* branch, const void* gamma, const void* weight,
+               const void* bias, void* y, int rows, int C, int branch_kind, float eps,
+               cudaStream_t stream) {
+  if (branch_kind == 2)
+    return launch<float, O>(x, branch, gamma, weight, bias, y, rows, C, eps, stream);
+  return launch<__nv_bfloat16, O>(x, branch_kind == 0 ? nullptr : branch,
+                                  branch_kind == 0 ? nullptr : gamma, weight, bias, y, rows, C,
+                                  eps, stream);
 }
 
 }  // namespace
 
-// branch_kind: 0 no branch, 1 bf16, 2 f32; out_kind: 0 bf16, 1 f32. Every
-// pointer 16-byte aligned, C a multiple of 8 up to 32·4·K_MAX.
-extern "C" int airpose_add_layernorm(void* x, const void* branch, const void* weight,
-                                     const void* bias, void* y, int rows, int C,
-                                     int branch_kind, int out_kind, float eps, void* stream) {
+// branch_kind: 0 no branch, 1 bf16, 2 f32; out_kind: 0 bf16, 1 f32; gamma
+// null for a plain add (and ignored without a branch). Every pointer 16-byte
+// aligned, C a multiple of 8 up to 32·4·K_MAX.
+extern "C" int airpose_add_layernorm(void* x, const void* branch, const void* gamma,
+                                     const void* weight, const void* bias, void* y, int rows,
+                                     int C, int branch_kind, int out_kind, float eps,
+                                     void* stream) {
   if (rows < 0 || C < 8 || C % 8 || C > 32 * 4 * K_MAX || branch_kind < 0 || branch_kind > 2 ||
       out_kind < 0 || out_kind > 1 || (branch_kind != 0 && branch == nullptr))
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_kind == 0)
-    return launch_out<__nv_bfloat16>(x, branch, weight, bias, y, rows, C, branch_kind, eps, s);
-  return launch_out<float>(x, branch, weight, bias, y, rows, C, branch_kind, eps, s);
+    return launch_out<__nv_bfloat16>(x, branch, gamma, weight, bias, y, rows, C, branch_kind, eps,
+                                     s);
+  return launch_out<float>(x, branch, gamma, weight, bias, y, rows, C, branch_kind, eps, s);
 }

@@ -28,6 +28,14 @@ def perspective_projection(points: torch.Tensor, rotation: torch.Tensor,
     return proj[..., :2] * focal[None, None, :2] + camera_center[:, None, :]
 
 
+def backproject(uv: torch.Tensor, depth: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
+    """Pixels ``uv`` (..., 2) at ``depth`` (...) through zero-skew intrinsics
+    ``intr`` (..., 3, 3) → camera-frame points depth · K⁻¹[u, v, 1] (..., 3)."""
+    x = (uv[..., 0] - intr[..., 0, 2]) / intr[..., 0, 0]
+    y = (uv[..., 1] - intr[..., 1, 2]) / intr[..., 1, 1]
+    return depth[..., None] * torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+
 def transform_points(trans_mat: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """(B, 3, 4) or (B, 4, 4) rigid transforms applied to (B, N, 3) points."""
     return (torch.einsum("bij,bnj->bni", trans_mat[:, :3, :3], points)

@@ -29,7 +29,7 @@ the port's column-major layout for the shared ``rot6d_to_rotmat``.
 """
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -85,10 +85,12 @@ class SelfAttention(nn.Module):
         self.to_out = nn.Sequential(nn.Linear(heads * dim_head, dim), nn.Dropout(0.0))
         self.calls = 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask`` (boolean, (B, 1, N, N)): the keys each query may attend
+        to; None lets every query attend to every key."""
         q, k, v = (split_heads(t, self.heads) for t in self.to_qkv(x).chunk(3, dim=-1))
         self.calls += 1
-        return self.to_out(merge_heads(attention(q, k, v)))
+        return self.to_out(merge_heads(attention(q, k, v, mask)))
 
 
 class CrossAttention(nn.Module):
@@ -126,9 +128,12 @@ class TransformerCrossAttn(nn.Module):
             PreNorm(cfg.dim, FeedForward(cfg.dim, cfg.mlp_dim)),
         ]) for _ in range(cfg.depth))
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Queries ``x`` (B, N, dim) over ``context`` (B, T, context_dim);
+        ``mask`` restricts the queries' self-attention (``SelfAttention``)."""
         for self_attn, cross_attn, ff in self.layers:
-            x = self_attn(x) + x
+            x = self_attn(x, mask=mask) + x
             x = cross_attn(x, context=context) + x
             x = ff(x) + x
         return x

@@ -1,16 +1,19 @@
 """Residual add, LayerNorm and cast in one pass: the CUDA kernel
 ``csrc/add_layernorm.cu`` and its plain PyTorch version.
 
-HMR 2.0's ViT (models/vit.py) keeps a float32 residual stream ``x`` of
-(..., C) and, at each of its 2·depth + 1 norm points, adds the branch that
-is still pending and normalises the result into the next layer's input:
+The ViT (models/vit.py: HMR 2.0's ViT-H/16, Multi-HMR's DINOv2 ViT-L/14)
+keeps a float32 residual stream ``x`` of (..., C) and, at each of its
+2·depth + 1 norm points, adds the branch that is still pending, scaled by
+its LayerScale ``gamma`` where the backbone has one (DINOv2), and
+normalises the result into the next layer's input:
 
-    x += branch                                   (in place; none at block 0's norm1)
+    x += branch          or   x += gamma * branch    (in place; none at block 0's norm1)
     y = LayerNorm(x; weight, bias, eps).to(out_dtype)
 
 ``out_dtype`` is the backbone's compute dtype for the blocks' norms and
 float32 for ``last_norm``. The plain version is exactly those PyTorch ops.
-The kernel makes the same float32 add, so ``x`` comes out bit-equal, and
+The kernel makes the same float32 product and add (the product rounded,
+then the sum), so ``x`` comes out bit-equal, and
 sums the LayerNorm's statistics in another order, which moves a rare bf16
 output by one step.
 
@@ -42,26 +45,30 @@ def add_layernorm_cost(x: torch.Tensor, branch: Optional[torch.Tensor],
 
 def add_layernorm_reference(x: torch.Tensor, branch: Optional[torch.Tensor],
                             weight: torch.Tensor, bias: torch.Tensor, eps: float,
-                            out_dtype: torch.dtype) -> torch.Tensor:
-    """``x += branch`` (unless ``branch`` is None), then the LayerNorm of
-    ``x`` over its last axis in float32, cast to ``out_dtype``."""
+                            out_dtype: torch.dtype,
+                            gamma: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x += branch``, or ``x += gamma * branch`` with a ``gamma`` (nothing
+    where ``branch`` is None), then the LayerNorm of ``x`` over its last
+    axis in float32, cast to ``out_dtype``."""
     if branch is not None:
-        x += branch
+        x += branch if gamma is None else gamma * branch
     return F.layer_norm(x, (x.shape[-1],), weight, bias, eps).to(out_dtype)
 
 
 def add_layernorm(x: torch.Tensor, branch: Optional[torch.Tensor], weight: torch.Tensor,
-                  bias: torch.Tensor, eps: float, out_dtype: torch.dtype) -> torch.Tensor:
-    """``x`` updated in place by ``branch``, and its LayerNorm in
-    ``out_dtype``: the kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+                  bias: torch.Tensor, eps: float, out_dtype: torch.dtype,
+                  gamma: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x`` updated in place by ``branch`` (scaled by ``gamma`` where one
+    is given), and its LayerNorm in ``out_dtype``: the kernel on CUDA
+    tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
-        return add_layernorm_reference(x, branch, weight, bias, eps, out_dtype)
-    return add_layernorm_cuda(x, branch, weight, bias, eps, out_dtype)
+        return add_layernorm_reference(x, branch, weight, bias, eps, out_dtype, gamma)
+    return add_layernorm_cuda(x, branch, weight, bias, eps, out_dtype, gamma)
 
 
 def add_layernorm_cuda(x: torch.Tensor, branch: Optional[torch.Tensor], weight: torch.Tensor,
-                       bias: torch.Tensor, eps: float, out_dtype: torch.dtype) -> torch.Tensor:
+                       bias: torch.Tensor, eps: float, out_dtype: torch.dtype,
+                       gamma: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel; raises on anything it does not take."""
     C = x.shape[-1]
     if C % 8 or not 0 < C <= MAX_WIDTH:
@@ -77,8 +84,12 @@ def add_layernorm_cuda(x: torch.Tensor, branch: Optional[torch.Tensor], weight: 
         raise ValueError(f"add_layernorm: x is on {x.device}, not CUDA")
     inputs = (("x", x, torch.float32, x.shape), ("weight", weight, torch.float32, (C,)),
               ("bias", bias, torch.float32, (C,)))
-    if branch is not None:
+    if branch is None:
+        gamma = None
+    else:
         inputs += (("branch", branch, branch.dtype, x.shape),)
+    if gamma is not None:
+        inputs += (("gamma", gamma, torch.float32, (C,)),)
     for name, t, dtype, shape in inputs:
         _build.check_tensor("add_layernorm", name, t, x.device, dtype, shape, 16)
     if torch.is_grad_enabled() and any(t.requires_grad for _, t, _, _ in inputs):
@@ -86,8 +97,9 @@ def add_layernorm_cuda(x: torch.Tensor, branch: Optional[torch.Tensor], weight: 
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     rows = x.numel() // C
     if rows:
-        fn = _build.function("add_layernorm", "airpose_add_layernorm", 5, 4, 1)
-        args = (x.data_ptr(), None if branch is None else branch.data_ptr(), weight.data_ptr(),
+        fn = _build.function("add_layernorm", "airpose_add_layernorm", 6, 4, 1)
+        args = (x.data_ptr(), None if branch is None else branch.data_ptr(),
+                None if gamma is None else gamma.data_ptr(), weight.data_ptr(),
                 bias.data_ptr(), y.data_ptr(), rows, C,
                 BRANCH_KINDS[None if branch is None else branch.dtype], OUT_KINDS[out_dtype],
                 eps)

@@ -26,10 +26,19 @@ joints) with the same skinning kernel, each crop's weak-perspective camera
 to a camera-frame translation, the same projection; its spans are ``vit``
 (``patch_embed``, ``vit_blocks`` inside), ``hmr2_head``, ``smpl`` and
 ``project``.
+
+``perceive_multihmr`` runs Multi-HMR (models/multihmr.py) on whole 896²
+frames of both drones: the DINOv2 backbone over every frame, detection's
+score map, the head over every person (the centres given, or those
+detection finds), whole-body SMPL-X (posed hands and jaw, expression) with
+the same skinning kernel, each person's translation from its centre and
+depth, the projection. Its spans are ``vit`` (``patch_embed``,
+``vit_blocks`` and each block's ``attention`` inside), ``detect``, ``hph``,
+``smplx`` and ``project``.
 """
 
 from functools import partial
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,9 +47,11 @@ from . import constants as C
 from . import resolve_device
 from .bodymodel.smpl import SMPLParams, smpl_forward
 from .bodymodel.smplx import SMPLXParams, smplx_forward, synthetic_smplx_params
+from .geometry.projection import backproject
 from .geometry.rotations import rot6d_to_rotmat
 from .models.airpose import AirPoseTwoView
 from .models.hmr2 import HMR2, pose_rotmats
+from .models.multihmr import NUM_POSE_JOINTS, MultiHMR, Persons
 from .ops.fused_bottleneck import resnet50_fused_infer, stage1_params_from_state_dict
 from .ops.int8_bottleneck import quantize_trunk_blocks, resnet50_int8_block_infer
 from .ops.int8_trunk import (calibrate_act_scales, quantize_trunk_params,
@@ -160,6 +171,61 @@ def perceive_hmr2(
         _, j2d = cam_frame_and_project(eye, trans, body.joints.reshape(B, 2, -1, 3), intr,
                                        intr[..., [0, 1], [0, 1]])
     return body.vertices.reshape(B, 2, -1, 3), j2d
+
+
+class PerceivedPersons(NamedTuple):
+    """Every person of a ``perceive_multihmr`` call, in order of their image."""
+
+    vertices: torch.Tensor   # (P, V, 3) camera frame
+    j2d: torch.Tensor        # (P, 127, 2) pixels
+    trans: torch.Tensor      # (P, 3) camera frame
+    index: torch.Tensor      # (P, 2) int64: (frame, view)
+    scores: torch.Tensor     # (B, views, gh, gw) detection's score map
+
+
+@torch.no_grad()
+def perceive_multihmr(
+    model: MultiHMR,
+    smplx_params: SMPLXParams,
+    frames: torch.Tensor,               # (B, 2, S, S, 3) RGB 0-255
+    intr: torch.Tensor,                 # (B, 2, 3, 3)
+    centres: Optional[Persons] = None,  # the persons' patches (models.multihmr.persons_from_centres)
+) -> PerceivedPersons:
+    """Multi-HMR over both drones' whole frames → every person's whole-body
+    SMPL-X vertices and 2D joints in the camera frame, translation and
+    (frame, view), and the score map. With ``centres`` the queries sit at
+    the given persons (images indexed frame · 2 + view); without, at those
+    detection finds. Runs where its inputs are, as ``perceive``."""
+    B, views = frames.shape[:2]
+    x = frames.reshape((B * views,) + frames.shape[2:])
+    K = intr.reshape(B * views, 3, 3)
+    with span("vit"):
+        tokens = model.backbone(model.normalise(x))
+    with span("detect"):
+        scores, persons, uv = model.detect(tokens, centres)
+        scores = scores.reshape((B, views) + scores.shape[1:])
+    index = torch.stack([persons.image // views, persons.image % views], dim=-1)
+    with span("hph"):
+        pose6d, betas, expression, depth = model.head(tokens, K, persons)
+        rot = rot6d_to_rotmat(pose6d.reshape(-1, NUM_POSE_JOINTS, 6))
+    if persons.count == 0:
+        V = smplx_params.v_template.shape[0]
+        J = (smplx_params.j_regressor.shape[0] + smplx_params.extra_joint_ids.shape[0]
+             + smplx_params.lmk_bary.shape[0])
+        e = tokens.new_zeros(0, 1, 1)
+        return PerceivedPersons(e.expand(0, V, 3), e.expand(0, J, 2), e[:, 0].expand(0, 3),
+                                index, scores)
+    with span("smplx"):
+        body = smplx_forward(smplx_params, betas, rot[:, 1:22], rot[:, :1],
+                             jaw_pose=rot[:, 22:23], hand_pose=rot[:, 23:],
+                             expression=expression)
+    with span("project"):
+        k = K[persons.image]
+        trans = backproject(uv, depth, k)
+        cam_j = body.joints + trans[:, None]
+        f = torch.stack([k[:, 0, 0], k[:, 1, 1]], dim=-1)[:, None]
+        j2d = cam_j[..., :2] / cam_j[..., 2:] * f + k[:, None, :2, 2]
+    return PerceivedPersons(body.vertices + trans[:, None], j2d, trans, index, scores)
 
 
 def build_perception(device=None, seed: int = 0, num_vertices: int = 10475,

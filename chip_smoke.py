@@ -196,17 +196,20 @@ Phases, each of which exits non-zero on failure:
  16. HMR 2.0 (models/hmr2.py, perception.perceive_hmr2) at its published
      widths: the skinning kernel at SMPL's J = 24, V = 6,890 (B = 128)
      against its plain version, timed; the fused add + LayerNorm + cast
-     (ops/add_layernorm.py) at 128 crops of 192 tokens of 1,280 against its
-     plain version (x bit-equal, the bf16 rows within one step), timed
-     beside its bound, the plain three ops and F.layer_norm alone; the
-     attention guard (an input no fast backend takes raises under
-     models/vit.attention, and the chain's attention kernels are the flash or
-     memory-efficient ones); then the chain on 64 two-view frames of 256²
+     (ops/add_layernorm.py) at 128 crops of 192 tokens of 1,280, and its
+     LayerScale kernel (x += γ · branch) at Multi-HMR's 16 frames of 4,097
+     tokens of 1,024, each against its plain version (x bit-equal, the bf16
+     rows within one step), timed beside its bound, the plain ops and
+     F.layer_norm alone; the attention guard (an input no fast backend
+     takes raises under models/vit.attention, and the chain's attention
+     kernels are the flash or memory-efficient ones); then the chain on 64 two-view frames of 256²
      from the benchmark's weights maker and inputs: 44 attention calls, 65
      add_layernorm launches and 1 skinning launch a call, the tokens and the
      tail against benchmark/reference/hmr2.py by the limits of the cell
      perceive_hmr2_vith_b64, and two_view_fps from CUDA events, with the norm
-     points as the kernel and as the plain three ops.
+     points as the kernel and as the plain three ops; then Multi-HMR
+     (perception.perceive_multihmr) at its published sizes on one two-view
+     896² frame: 49 add_layernorm launches a call, counted from zero.
      ``python3 chip_smoke.py --only hmr2`` builds the kernels and runs this
      phase alone.
 Prints the kernels as one JSON line, the card's name and power limit, and
@@ -3871,11 +3874,13 @@ def bf16_steps(a, b):
     return (ordered(a) - ordered(b)).abs()
 
 
-def add_layernorm_at(dev, rows=128 * 192, width=1280):
+def add_layernorm_at(dev, rows=128 * 192, width=1280, scaled=False):
     """The fused add + LayerNorm + cast at HMR 2.0's 128 crops (a bf16
-    branch and output, the blocks' case) against its plain version, then the
-    kernel, the plain three ops, F.layer_norm alone (f32 in and out: the
-    library yardstick) and the bound."""
+    branch and output, the blocks' case), or with ``scaled`` the LayerScale
+    kernel (``x += γ · branch``, |γ| drawn in [0.05, 1], either sign) at the
+    given rows,
+    against its plain version, then the kernel, the plain ops, F.layer_norm
+    alone (f32 in and out: the library yardstick) and the bound."""
     from torch.nn import functional as F
 
     from airpose_tpu_torch.ops import _build
@@ -3886,15 +3891,20 @@ def add_layernorm_at(dev, rows=128 * 192, width=1280):
     branch = torch.randn(rows, width, generator=g, device=dev).to(torch.bfloat16)
     w = 1 + 0.1 * torch.randn(width, generator=g, device=dev)
     b = 0.1 * torch.randn(width, generator=g, device=dev)
+    gamma = None
+    if scaled:
+        gamma = ((0.05 + 0.95 * torch.rand(width, generator=g, device=dev))
+                 * torch.randn(width, generator=g, device=dev).sign())
     want_x = x.clone()
-    want = aln.add_layernorm_reference(want_x, branch, w, b, 1e-6, torch.bfloat16)
-    got = aln.add_layernorm(x, branch, w, b, 1e-6, torch.bfloat16)
+    want = aln.add_layernorm_reference(want_x, branch, w, b, 1e-6, torch.bfloat16, gamma)
+    got = aln.add_layernorm(x, branch, w, b, 1e-6, torch.bfloat16, gamma)
     torch.cuda.synchronize()
     # the f32 rows differ by the statistics' order of summation (within 2e-6
     # of the largest output): one bf16 step, or more on outputs near 0
     steps, diff = bf16_steps(got, want), (got.float() - want.float()).abs()
     far = steps > 1
-    out = {"x_equal": bool(torch.equal(x, want_x)), "max_steps": int(steps.max()),
+    out = {"rows": rows, "width": width, "x_equal": bool(torch.equal(x, want_x)),
+           "max_steps": int(steps.max()),
            "share_off": float((steps > 0).float().mean()),
            "share_over_one_step": float(far.float().mean()),
            "max_abs_over_one_step": float(diff[far].max()) if bool(far.any()) else 0.0,
@@ -3902,37 +3912,42 @@ def add_layernorm_at(dev, rows=128 * 192, width=1280):
     check(out["x_equal"] and out["share_off"] < 1e-3
           and out["max_abs_over_one_step"] <= 2e-6 * out["largest_output"],
           f"add_layernorm disagrees with its plain version: {out}")
-    out["ms"] = time_ms(lambda: aln.add_layernorm(x, branch, w, b, 1e-6, torch.bfloat16),
+    out["ms"] = time_ms(lambda: aln.add_layernorm(x, branch, w, b, 1e-6, torch.bfloat16, gamma),
                         iters=50, warmup=5)
     out["plain_ms"] = time_ms(
-        lambda: aln.add_layernorm_reference(x, branch, w, b, 1e-6, torch.bfloat16),
+        lambda: aln.add_layernorm_reference(x, branch, w, b, 1e-6, torch.bfloat16, gamma),
         iters=50, warmup=5)
     out["library_ms"] = time_ms(lambda: F.layer_norm(x, (width,), w, b, 1e-6), iters=50,
                                 warmup=5)
     out["bound_ms"] = aln.add_layernorm_cost(x, branch, torch.bfloat16) / HBM_BYTES * 1e3
     out["ptxas"] = ptxas_lines(_build.build_log.get("add_layernorm", ""), "add_layernorm")
-    log(f"add_layernorm ({rows}, {width}): kernel {out['ms']:.4f} ms, plain three ops "
-        f"{out['plain_ms']:.4f} ms, F.layer_norm alone {out['library_ms']:.4f} ms, bound "
+    log(f"add_layernorm ({rows}, {width}{', γ' if scaled else ''}): kernel {out['ms']:.4f} ms, "
+        f"plain ops {out['plain_ms']:.4f} ms, F.layer_norm alone {out['library_ms']:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms (bytes), kernel at {out['bound_ms'] / out['ms']:.1%} of its "
         f"bound; {out}")
     return out
 
 
 def phase_hmr2(dev, card):
-    """Phase 16: SMPL's skinning shape, the fused norm point, the attention
-    guard, and the HMR 2.0 chain at the published widths against the
-    benchmark's reference."""
+    """Phase 16: SMPL's skinning shape, the fused norm point (HMR 2.0's and
+    Multi-HMR's LayerScale one), the attention guard, the HMR 2.0 chain at
+    the published widths against the benchmark's reference, and the norm
+    points' launches in a Multi-HMR forward."""
     from torch.profiler import ProfilerActivity, profile
 
     from airpose_tpu_torch.bodymodel import cuda_lbs, synthetic_smpl_params
     from airpose_tpu_torch.models import vit as vit_mod
+    from airpose_tpu_torch.models.multihmr import persons_from_centres
     from airpose_tpu_torch.ops import _build
     from airpose_tpu_torch.ops import add_layernorm as aln
-    from airpose_tpu_torch.perception import perceive_hmr2
-    from benchmark.drivers import worst_ray_angle, worst_row_cos_gap, worst_row_rel_l2
+    from airpose_tpu_torch.perception import perceive_hmr2, perceive_multihmr
+    from benchmark.drivers import (program_body, worst_ray_angle, worst_row_cos_gap,
+                                   worst_row_rel_l2)
     from benchmark.drivers.perceive_hmr2 import program_hmr2, program_smpl
+    from benchmark.drivers.perceive_multihmr import intrinsics, program_multihmr
     from benchmark.inputs import perception_pool
     from benchmark.reference import hmr2 as ref
+    from benchmark.reference import multihmr as mref
 
     out = {}
     B, V, J = 128, 6890, 24
@@ -3944,6 +3959,7 @@ def phase_hmr2(dev, card):
     out["skinning"] = skinning_at(w, torch.from_numpy(rel).to(dev), p)
     out["skinning"]["resources"] = cuda_lbs.kernel_resources(J)
     out["add_layernorm"] = add_layernorm_at(dev)
+    out["add_layernorm_gamma"] = add_layernorm_at(dev, 16 * 4097, 1024, scaled=True)
 
     q = torch.randn(2, 16, 192, 80, device=dev, dtype=torch.float64)
     try:
@@ -4012,9 +4028,33 @@ def phase_hmr2(dev, card):
     out["joints2d_ray_angle"] = worst_ray_angle(j2d, tj, b["intr"])
     for k in ("tokens_cos_gap", "tokens_call_rel", "tail_vertices_rel", "joints2d_ray_angle"):
         check(out[k] <= limits[k], f"hmr2 {k} {out[k]} above the cell's limit {limits[k]}")
+    del sd, rt, tokens
+    torch.cuda.empty_cache()
+
+    # Multi-HMR at its published sizes on one two-view 896² frame, four
+    # persons given: each of the 49 norm points one LayerScale launch
+    mcfg = json.load(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark",
+                                       "configs", "multihmr_vitl896.json")))
+    mmodel = program_multihmr(mcfg, mref.make_state(mcfg, 21, dev), dev)
+    mbody = program_body(mref.make_body(22, mcfg["smplx"]["num_vertices"], dev))
+    S = mcfg["crop"]
+    frames = torch.randint(0, 256, (1, 2, S, S, 3), generator=torch.Generator(
+        device=dev).manual_seed(23), device=dev, dtype=torch.uint8)
+    uv = torch.tensor([[100.0, 200.0], [450.5, 451.0], [890.0, 13.0], [30.0, 700.0]], device=dev)
+    persons = persons_from_centres(uv, torch.tensor([0, 0, 0, 1], device=dev), 2,
+                                   mcfg["backbone"]["patch"], mcfg["backbone"]["grid"], slots=3)
+    K = intrinsics(S, dev).expand(1, 2, 3, 3)
+    reset_kernel_counts()
+    got = perceive_multihmr(mmodel, mbody, frames, K, persons)
+    torch.cuda.synchronize()
+    out["multihmr_add_layernorm_launches_a_call"] = _build.counts["add_layernorm"]
+    check(out["multihmr_add_layernorm_launches_a_call"] == 2 * mcfg["backbone"]["depth"] + 1,
+          f"add_layernorm launches a Multi-HMR call: {out}")
+    check(bool(torch.isfinite(got.vertices).all() and torch.isfinite(got.j2d).all()),
+          "non-finite Multi-HMR outputs")
     out["memory_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     log(f"phase 16: {json.dumps(out)} [{card}]")
-    del sd, rt, tokens
+    del mmodel, mbody, got
     torch.cuda.empty_cache()
     return out
 
@@ -4126,7 +4166,13 @@ def main():
                     "source": "airpose_tpu_torch/csrc/add_layernorm.cu",
                     "replaces": "no TPU kernel (port only: HMR 2.0's residual add, LayerNorm "
                                 "and bf16 cast, three PyTorch passes a norm point)"}
-                   | hmr2["add_layernorm"])
+                   | hmr2["add_layernorm"]
+                   | {"gamma_at_multihmr_rows": {
+                       k: hmr2["add_layernorm_gamma"][k]
+                       for k in ("rows", "ms", "plain_ms", "library_ms", "bound_ms",
+                                 "max_steps", "share_off")},
+                      "multihmr_launches_a_call":
+                          hmr2["multihmr_add_layernorm_launches_a_call"]})
     launches["add_layernorm"] = hmr2["add_layernorm_launches_a_call"]
     # launches: kernel launches in the main path's run of the chain that uses
     # each kernel (int8_block: its 42 conv launches, beside its 13 block calls)

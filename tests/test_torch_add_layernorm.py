@@ -1,5 +1,6 @@
 """The fused residual add + LayerNorm + cast (ops/add_layernorm.py,
-csrc/add_layernorm.cu) and the ViT forward built on it (models/vit.py).
+csrc/add_layernorm.cu), with and without a LayerScale γ on the branch, and
+the ViT forward built on it (models/vit.py).
 
 On the CPU: the plain version is bit-equal to the three ops it replaces, the
 ViT's forward is bit-equal to the loop it had before the norm points were
@@ -46,8 +47,15 @@ def operands(rows, width, branch_dtype, device="cpu", seed=0):
     return move(x), move(branch), move(w), move(b)
 
 
-def vit(dtype, depth=2, seed=0):
-    model = ViT(dataclasses.replace(CFG, depth=depth), dtype,
+def gamma_of(width, device="cpu", seed=1):
+    """A LayerScale γ at trained magnitudes, some channels negative."""
+    g = torch.Generator().manual_seed(seed)
+    return ((0.05 + torch.rand(width, generator=g)) * torch.randn(width, generator=g).sign()
+            ).to(device)
+
+
+def vit(dtype, depth=2, seed=0, cfg=CFG):
+    model = ViT(dataclasses.replace(cfg, depth=depth), dtype,
                 generator=torch.Generator().manual_seed(seed))
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
@@ -88,6 +96,24 @@ def test_plain_version_is_the_three_ops(branch_dtype, out_dtype):
     got = aln.add_layernorm(x, branch, w, b, 1e-6, out_dtype)
     assert got.dtype == out_dtype
     assert torch.equal(x, want_x) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("branch_dtype,out_dtype", [
+    (BF16, BF16), (torch.float32, torch.float32), (BF16, torch.float32)])
+def test_plain_version_with_gamma_is_the_scaled_add(branch_dtype, out_dtype):
+    """With a LayerScale γ the plain version adds γ · branch (the product in
+    float32, then the sum) and normalises; γ is ignored without a branch."""
+    x, branch, w, b = operands(37, 64, branch_dtype)
+    gamma = gamma_of(64)
+    want_x = x.clone()
+    want_x += gamma * branch.float()
+    want = F.layer_norm(want_x, (64,), w, b, 1e-6).to(out_dtype)
+    got = aln.add_layernorm(x, branch, w, b, 1e-6, out_dtype, gamma)
+    assert torch.equal(x, want_x) and torch.equal(got, want)
+    x2 = want_x.clone()
+    assert torch.equal(aln.add_layernorm(x2, None, w, b, 1e-6, out_dtype, gamma),
+                       aln.add_layernorm(want_x.clone(), None, w, b, 1e-6, out_dtype))
+    assert torch.equal(x2, want_x)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
@@ -190,6 +216,32 @@ def test_kernel_matches_plain_version(cuda, rows, width, branch_dtype, out_dtype
     # the f32 rows differ by the order of the statistics' sums, within 2e-6 of
     # the largest output; rounded to bf16 that is one step, except on outputs
     # near 0, where the same small difference spans several steps
+    near = (got.float() - want.float()).abs() <= 2e-6 * float(want.abs().max())
+    if out_dtype == BF16:
+        steps = bf16_steps(got, want)
+        assert bool(((steps <= 1) | near).all())
+        assert float((steps > 0).float().mean()) < 1e-3
+    else:
+        assert bool(near.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width", [(16 * 4097, 1024), (300, 64)])
+@pytest.mark.parametrize("branch_dtype,out_dtype", [
+    (BF16, BF16), (BF16, torch.float32), (torch.float32, torch.float32)])
+def test_kernel_with_gamma_matches_plain_version(cuda, rows, width, branch_dtype, out_dtype):
+    """DINOv2's LayerScale in the kernel, at Multi-HMR's rows (16 frames of
+    4,097 tokens, 1,024 wide): the stream bit-equal to ``x += γ · branch``,
+    the output as close as without γ."""
+    x, branch, w, b = operands(rows, width, branch_dtype, cuda, seed=rows + 1)
+    gamma = gamma_of(width, cuda)
+    want_x = x.clone()
+    want = aln.add_layernorm_reference(want_x, branch, w, b, 1e-6, out_dtype, gamma)
+    before = _build.counts["add_layernorm"]
+    got = aln.add_layernorm(x, branch, w, b, 1e-6, out_dtype, gamma)
+    torch.cuda.synchronize()
+    assert _build.counts["add_layernorm"] == before + 1
+    assert torch.equal(x, want_x)
     near = (got.float() - want.float()).abs() <= 2e-6 * float(want.abs().max())
     if out_dtype == BF16:
         steps = bf16_steps(got, want)

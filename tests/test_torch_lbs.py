@@ -88,8 +88,11 @@ def test_synthetic_smplx_params_equal_jax(V):
     tp = tsmplx.synthetic_smplx_params(num_vertices=V)
     assert tp.parents == tuple(jp.parents)
     np.testing.assert_array_equal(tp.faces, jp.faces)
+    # the expression directions are the port's own (the JAX model has none),
+    # drawn after every array the two share
+    assert tp.expr_dirs.shape == (V, 3, tsmplx.NUM_EXPRESSION)
     for f in dataclasses.fields(tp):
-        if f.name in ("parents", "faces"):
+        if f.name in ("parents", "faces", "expr_dirs"):
             continue
         got, want = getattr(tp, f.name).numpy(), np.asarray(getattr(jp, f.name))
         if f.name == "hand_pose":  # batch_rodrigues in each framework
@@ -101,7 +104,9 @@ def test_synthetic_smplx_params_equal_jax(V):
 def test_smplx_params_from_numpy_roundtrip():
     jp = jsmplx.synthetic_smplx_params(num_vertices=64, seed=3)
     tp = tsmplx.smplx_params_from_numpy(**{
-        f.name: getattr(jp, f.name) for f in dataclasses.fields(tsmplx.SMPLXParams)})
+        f.name: getattr(jp, f.name) for f in dataclasses.fields(tsmplx.SMPLXParams)
+        if f.name != "expr_dirs"})
+    assert tp.expr_dirs is None
     np.testing.assert_array_equal(tp.lbs_weights.numpy(), np.asarray(jp.lbs_weights))
     assert tp.extra_joint_ids.dtype == torch.int64
 
